@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (dfvo_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out build/chip_smoke/chip_smoke.json]
+
+Run from the root of a checkout. Phases, each printed with its result and
+seconds, none caught:
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions; TF32 is switched off for every float32 comparison.
+2. build: the CUDA kernels of dfvo_torch/csrc, compiled with nvcc for sm_90a.
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   every shape the main path gives it, in float32 and bfloat16.
+4. slice: DeepFrontend from options/examples/default_configuration.yml
+   (192x640, bfloat16, seeded random weights) runs `infer` on 8 consecutive
+   pairs of synthetic frames, `infer_chunk` on a 33-frame chunk and
+   `local_bestN` on every pair; launch counters must show each kernel on
+   that path (5 correlations, 5 regularization filters, 14 head convs per
+   network call).
+5. parity: the float32 slice on the card against the plain slice on the CPU.
+6. times: CUDA-event medians of `infer` and `infer_chunk` per frame, and of
+   each kernel against its plain version at the level-2 shapes.
+7. profile: device time by kernel name of one `infer` and one
+   `infer_chunk` call (torch.profiler), written next to the report as
+   profile_infer.txt and profile_infer_chunk.txt.
+
+Weights and inputs are drawn from SEED.
+
+It ends with a JSON line of the kernels, the nvidia-smi line, and the result
+line {"ok": true, "device": {...}}. It exits non-zero, printing no result,
+when no CUDA device is available or any phase fails.
+"""
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CFG = os.path.join(ROOT, "options", "examples", "default_configuration.yml")
+
+# main-path shapes at 192x640 (N = 2 in infer, 2(M-1) = 64 in infer_chunk)
+LFN_BATCHES = (2, 64)
+DEPTH_BATCHES = (1, 32)
+# (level, n-independent f1/f2 shape [H, W, C]); levels 3 and 2 are the
+# stride-2 subsamples of [48,160,64] and [96,320,64]
+CORR_SHAPES = ((6, (6, 20, 192)), (5, (12, 40, 128)), (4, (24, 80, 96)),
+               (3, (24, 80, 64)), (2, (48, 160, 64)))
+REG_SHAPES = ((2, (96, 320), 7), (3, (48, 160), 5), (4, (24, 80), 5),
+              (5, (12, 40), 3), (6, (6, 20), 3))
+# (name, [H, W, Cin], Cout, k, prepadded)
+LFN_HEADS = tuple((f"main_3 L{lvl}", (h, w, 32), 2, k, False)
+                  for lvl, (h, w), k in REG_SHAPES)
+DEPTH_HEADS = (("dispconv_0", (194, 642, 16), 1, 3, True),
+               ("dispconv_1", (98, 322, 32), 1, 3, True),
+               ("dispconv_2", (50, 162, 64), 1, 3, True),
+               ("dispconv_3", (26, 82, 128), 1, 3, True))
+SEED = 0
+INFER_PAIRS = 8
+CHUNK_FRAMES = 33
+PER_CALL = {"correlation": 5, "reg_scale_filter": 5, "head_conv": 14}
+
+
+def phase(name):
+    def wrap(fn):
+        def run(*a, **kw):
+            print(f"[{name}] start", flush=True)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            print(f"[{name}] ok {time.perf_counter() - t0:.1f} s", flush=True)
+            return out
+        return run
+    return wrap
+
+
+def fail(msg):
+    raise RuntimeError(msg)
+
+
+def nvidia_smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+@phase("device")
+def device_phase():
+    smi = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"  {smi}")
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    print("  TF32 off for matmul and cuDNN (float32 comparisons in true float32)")
+    return smi
+
+
+@phase("build")
+def build_phase():
+    from dfvo_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    cuda_lib.load()
+    print(f"  library {cuda_lib.library_path().name}: built in "
+          f"{cuda_lib.build_seconds if cuda_lib.build_seconds is not None else 0.0:.1f} s "
+          f"(loaded in {time.perf_counter() - t0:.1f} s)")
+    log = cuda_lib.BUILD_DIR / "build.log"
+    if log.is_file():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {line.strip()}")
+
+
+class Checker:
+    """Holds the numpy generator and the worst errors per kernel."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.max_abs_err = {k: 0.0 for k in PER_CALL}
+
+    def randn(self, shape, scale=1.0):
+        a = self.rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).cuda()
+
+    def rand(self, shape, lo=0.0, hi=1.0):
+        a = self.rng.random(shape, dtype=np.float32) * np.float32(hi - lo) + np.float32(lo)
+        return torch.from_numpy(a).cuda()
+
+    def compare(self, kernel, label, kernel_fn, plain_fn, inputs, prep=None):
+        """Kernel vs plain version in float32, then in bfloat16 against the
+        plain version in float32 on the same bf16-rounded inputs. ``prep``
+        re-lays the kernel's inputs (same values) before the launch."""
+        prep = prep or (lambda t: t)
+        # float32: max abs error <= 1e-4 * max(1, max|ref|)
+        got = kernel_fn(*[prep(t) for t in inputs])
+        ref = plain_fn(*inputs)
+        err = (got - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        torch.cuda.synchronize()
+        if not err <= 1e-4 * scale:
+            fail(f"{kernel} {label} float32: max abs err {err:.3e} > {1e-4 * scale:.3e}")
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        # bfloat16: |got - ref| <= 2e-2 |ref| (output rounding) + the float32
+        # bound above (summation order)
+        inputs_bf = [t.bfloat16() for t in inputs]
+        got = kernel_fn(*[prep(t) for t in inputs_bf])
+        if got.dtype != torch.bfloat16:
+            fail(f"{kernel} {label}: bfloat16 input gave {got.dtype}")
+        ref = plain_fn(*[t.float() for t in inputs_bf])
+        excess = ((got.float() - ref).abs() - 2e-2 * ref.abs()).max().item()
+        scale = max(1.0, ref.abs().max().item())
+        torch.cuda.synchronize()
+        if not excess <= 1e-4 * scale:
+            fail(f"{kernel} {label} bfloat16: error exceeds 2e-2 |ref| by {excess:.3e}")
+        print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok", flush=True)
+
+
+@phase("kernels")
+def kernels_phase(chk):
+    from dfvo_torch.ops.correlation import correlation_plain
+    from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+    from dfvo_torch.ops.regfilter import reg_scale_filter_cuda, reg_scale_filter_plain
+
+    for n in LFN_BATCHES:
+        for lvl, (h, w, c) in CORR_SHAPES:
+            f1, f2 = chk.randn((n, h, w, c)), chk.randn((n, h, w, c))
+            if lvl <= 3:
+                # as on the path: f1 is the [::2, ::2] view of the full map
+                f1 = chk.randn((n, 2 * h, 2 * w, c))[:, ::2, ::2]
+            chk.compare("correlation", f"L{lvl} {[n, h, w, c]}",
+                        lambda a, b: correlation_cuda(a, b, 3, 1),
+                        lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2))
+        for lvl, (h, w), k in REG_SHAPES:
+            dist = chk.rand((n, h, w, k * k), 0.05, 1.0)
+            flow = chk.randn((n, h, w, 2), 4.0)
+            wts = [chk.randn((1, 1, k * k, 1)), chk.randn((1,)),
+                   chk.randn((1, 1, k * k, 1)), chk.randn((1,))]
+            chk.compare("reg_scale_filter", f"L{lvl} k{k} {[n, h, w]}",
+                        lambda d, f, *p: reg_scale_filter_cuda(d, f, *p, k),
+                        lambda d, f, *p: reg_scale_filter_plain(d, f, *p, k),
+                        (dist, flow, *wts))
+        for name, hwc, cout, k, pre in LFN_HEADS:
+            check_head(chk, name, n, hwc, cout, k, pre, head_conv_cuda, head_conv_plain)
+    for n in DEPTH_BATCHES:
+        for name, hwc, cout, k, pre in DEPTH_HEADS:
+            check_head(chk, name, n, hwc, cout, k, pre, head_conv_cuda, head_conv_plain)
+    # off the main path: channel counts that do not fill 16-byte vectors and
+    # a base address that is not 16-byte aligned take the kernels' scalar
+    # loops
+    f1, f2 = chk.randn((2, 12, 40, 33)), chk.randn((2, 12, 40, 33))
+    chk.compare("correlation", "c=33 [2, 12, 40, 33]",
+                lambda a, b: correlation_cuda(a, b, 3, 1),
+                lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2))
+    f1, f2 = chk.randn((2, 12, 40, 64)), chk.randn((2, 12, 40, 64))
+    chk.compare("correlation", "unaligned [2, 12, 40, 64]",
+                lambda a, b: correlation_cuda(a, b, 3, 1),
+                lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2),
+                prep=misaligned)
+    check_head(chk, "cin=3", 2, (24, 80, 3), 2, 5, False, head_conv_cuda,
+               head_conv_plain)
+    check_head(chk, "unaligned", 2, (24, 80, 32), 2, 5, False, head_conv_cuda,
+               head_conv_plain, prep=misaligned)
+    # the cost volume's other window (HD3, off this path) and its stride-2 form
+    f1, f2 = chk.randn((2, 24, 80, 64)), chk.randn((2, 24, 80, 64))
+    chk.compare("correlation", "D=4 [2, 24, 80, 64]",
+                lambda a, b: correlation_cuda(a, b, 4, 1),
+                lambda a, b: correlation_plain(a, b, 4, 1), (f1, f2))
+    chk.compare("correlation", "stride 2 [2, 48, 160, 64]",
+                lambda a, b: correlation_cuda(a, b, 3, 2),
+                lambda a, b: correlation_plain(a, b, 3, 2),
+                (chk.randn((2, 48, 160, 64)), chk.randn((2, 48, 160, 64))))
+
+
+def check_head(chk, name, n, hwc, cout, k, pre, kernel_fn, plain_fn, prep=None):
+    x = chk.randn((n, *hwc))
+    kern = chk.randn((k, k, hwc[2], cout), 1.0 / math.sqrt(k * k * hwc[2]))
+    bias = chk.randn((cout,), 0.1)
+    chk.compare("head_conv", f"{name} {[n, *hwc]}",
+                lambda a, b, c: kernel_fn(a, b, c, pre),
+                lambda a, b, c: plain_fn(a, b, c, pre), (x, kern, bias), prep)
+
+
+def misaligned(t):
+    """The same values, contiguous, starting one element past an aligned
+    address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def make_frames(seed, count, h, w):
+    """Synthetic uint8 frames: a smooth random texture panning 2 px/frame."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h // 4 + 4, (w + 2 * count) // 4 + 4, 3), np.uint8)
+    base = np.repeat(np.repeat(base, 4, axis=0), 4, axis=1)
+    return np.stack([base[:h, 2 * i : 2 * i + w] for i in range(count)])
+
+
+def launch_counts():
+    from dfvo_torch.ops.headconv import head_conv_cuda
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+    from dfvo_torch.ops.regfilter import reg_scale_filter_cuda
+
+    return {"correlation": correlation_cuda, "reg_scale_filter": reg_scale_filter_cuda,
+            "head_conv": head_conv_cuda}
+
+
+def check_finite(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        fail(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.is_floating_point() and not torch.isfinite(t).all():
+        fail(f"{name}: non-finite values")
+
+
+def load_cfg(dtype=None):
+    from dfvo_torch.utils import ConfigLoader
+
+    cfg = ConfigLoader().merge_cfg([CFG])
+    if dtype is not None:
+        cfg.tpu.dtype = dtype
+    return cfg
+
+
+@phase("slice")
+def slice_phase(seed):
+    from dfvo_torch.matching import KPSelectionSpec, local_bestN
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+
+    cfg = load_cfg()  # the YAML as it is: 192x640, bfloat16
+    h, w = cfg.image.height, cfg.image.width
+    fe = DeepFrontend(cfg, "cuda")
+    variables = fe.prepare_variables(fe.init_variables(torch.Generator().manual_seed(seed)))
+    kcfg = cfg.kp_selection.local_bestN
+    spec = KPSelectionSpec(h, w, kcfg.num_row, kcfg.num_col, kcfg.num_bestN)
+    frames = torch.from_numpy(make_frames(seed, CHUNK_FRAMES, h, w)).cuda()
+    imgs = frames.float() / 255.0  # as the JAX frame loop scales uint8 frames
+    print(f"  {h}x{w} {fe.dtype}, frames {tuple(frames.shape)}")
+
+    counters = launch_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, kps = [], []
+    for i in range(1, INFER_PAIRS + 1):
+        out = fe.infer(variables, imgs[i], imgs[i - 1])
+        outs.append(out)
+        kps.append(local_bestN(spec, out["flow_fwd"], out["flow_diff"],
+                               thre=kcfg.thre, score_method=kcfg.score_method))
+    chunk = fe.infer_chunk(variables, imgs)
+    chunk_kps = [local_bestN(spec, chunk["flow_fwd"][j], chunk["flow_diff"][j],
+                             thre=kcfg.thre, score_method=kcfg.score_method)
+                 for j in range(CHUNK_FRAMES - 1)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    for out in outs:
+        check_finite("depth_cur", out["depth_cur"], (h, w))
+        check_finite("flow_fwd", out["flow_fwd"], (h, w, 2))
+        check_finite("flow_bwd", out["flow_bwd"], (h, w, 2))
+        check_finite("flow_diff", out["flow_diff"], (h, w))
+    m = CHUNK_FRAMES - 1
+    check_finite("depths", chunk["depths"], (m, h, w))
+    check_finite("chunk flow_fwd", chunk["flow_fwd"], (m, h, w, 2))
+    check_finite("chunk flow_diff", chunk["flow_diff"], (m, h, w))
+    n_kp = spec.n_per_cell * spec.num_row * spec.num_col
+    for kp in kps + chunk_kps:
+        check_finite("kp1", kp["kp1"], (n_kp, 2))
+        check_finite("kp2", kp["kp2"], (n_kp, 2))
+        check_finite("valid", kp["valid"], (n_kp,))
+    calls = INFER_PAIRS + 1
+    expected = {k: v * calls for k, v in PER_CALL.items()}
+    print(f"  {INFER_PAIRS} infer + 1 infer_chunk ({CHUNK_FRAMES} frames) + "
+          f"{len(kps) + len(chunk_kps)} local_bestN in {wall:.2f} s (first calls included)")
+    print(f"  launches {launches}, expected {expected} "
+          f"({PER_CALL} per network call)")
+    print(f"  depth {outs[0]['depth_cur'].min().item():.3f}..{outs[0]['depth_cur'].max().item():.3f}, "
+          f"|flow_fwd| max {outs[0]['flow_fwd'].abs().max().item():.4f}, "
+          f"valid kp {int(kps[0]['valid'].sum())}/{n_kp}, good {bool(kps[0]['good_kp_found'])}")
+    if launches != expected:
+        fail(f"launch counts {launches} != {expected}")
+    return fe, variables, imgs, launches
+
+
+@phase("parity")
+def parity_phase(seed, imgs):
+    """float32 slice on the card vs the plain slice on the CPU, same weights.
+    The flow-delta heads are scaled x40 so flows span pixels and every warp
+    samples between pixels; random weights alone give flows of ~0.02 px."""
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+
+    cfg = load_cfg("float32")
+    fe_gpu = DeepFrontend(cfg, "cuda")
+    fe_cpu = DeepFrontend(cfg, "cpu")
+    variables = fe_gpu.init_variables(torch.Generator().manual_seed(seed + 1))
+    for k in variables["flow"]:
+        if k.endswith("moduleMain.6.weight") and "Regularization" not in k:
+            variables["flow"][k] = variables["flow"][k] * 40.0
+    v_gpu = fe_gpu.prepare_variables(variables)
+    v_cpu = fe_cpu.prepare_variables(variables)
+    worst = {}
+    for i in (1, 2):
+        got = fe_gpu.infer(v_gpu, imgs[i], imgs[i - 1])
+        want = fe_cpu.infer(v_cpu, imgs[i].cpu(), imgs[i - 1].cpu())
+        torch.cuda.synchronize()
+        d_got, d_want = got["depth_cur"].cpu(), want["depth_cur"]
+        rel = ((d_got - d_want).abs() / d_want.abs()).max().item()
+        worst["depth_cur rel"] = max(worst.get("depth_cur rel", 0.0), rel)
+        if not rel <= 1e-3:
+            fail(f"pair {i}: depth_cur relative error {rel:.3e} > 1e-3")
+        for key in ("flow_fwd", "flow_bwd", "flow_diff"):
+            err = (got[key].cpu() - want[key]).abs().max().item()
+            worst[key] = max(worst.get(key, 0.0), err)
+            if not err <= 1e-2:
+                fail(f"pair {i}: {key} max abs error {err:.3e} px > 1e-2")
+        print(f"  pair {i}: |flow_fwd| max {want['flow_fwd'].abs().max().item():.2f} px, "
+              f"errors {({k: f'{v:.2e}' for k, v in worst.items()})}", flush=True)
+    return worst
+
+
+def time_cuda(fn, reps, rounds=5):
+    """Median over ``rounds`` of CUDA-event ms per call over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return statistics.median(samples)
+
+
+@phase("times")
+def times_phase(chk, fe, variables, imgs):
+    from dfvo_torch.ops.correlation import correlation_plain
+    from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+    from dfvo_torch.ops.regfilter import reg_scale_filter_cuda, reg_scale_filter_plain
+
+    infer_ms = time_cuda(lambda: fe.infer(variables, imgs[1], imgs[0]), reps=5)
+    chunk_ms = time_cuda(lambda: fe.infer_chunk(variables, imgs), reps=1, rounds=3)
+    per_frame_chunk = chunk_ms / (CHUNK_FRAMES - 1)
+    print(f"  infer: {infer_ms:.3f} ms/frame (one pair, bfloat16)")
+    print(f"  infer_chunk: {chunk_ms:.3f} ms per {CHUNK_FRAMES}-frame chunk = "
+          f"{per_frame_chunk:.3f} ms/frame")
+
+    kernel_times = {}
+    for n in LFN_BATCHES:
+        f1 = chk.randn((n, 96, 320, 64)).bfloat16()[:, ::2, ::2]
+        f2 = chk.randn((n, 48, 160, 64)).bfloat16()
+        dist = chk.rand((n, 96, 320, 49), 0.05, 1.0).bfloat16()
+        flow = chk.randn((n, 96, 320, 2), 4.0).bfloat16()
+        wx, wy = chk.randn((1, 1, 49, 1)).bfloat16(), chk.randn((1, 1, 49, 1)).bfloat16()
+        bx, by = chk.randn((1,)).bfloat16(), chk.randn((1,)).bfloat16()
+        x = chk.randn((n, 96, 320, 32)).bfloat16()
+        kern = chk.randn((7, 7, 32, 2), 0.025).bfloat16()
+        bias = chk.randn((2,), 0.1).bfloat16()
+        cases = {
+            "correlation": (lambda: correlation_cuda(f1, f2, 3, 1),
+                            lambda: correlation_plain(f1, f2, 3, 1)),
+            "reg_scale_filter": (lambda: reg_scale_filter_cuda(dist, flow, wx, bx, wy, by, 7),
+                                 lambda: reg_scale_filter_plain(dist, flow, wx, bx, wy, by, 7)),
+            "head_conv": (lambda: head_conv_cuda(x, kern, bias),
+                          lambda: head_conv_plain(x, kern, bias)),
+        }
+        for name, (kfn, pfn) in cases.items():
+            p1 = time_cuda(pfn, reps=10)
+            k1 = time_cuda(kfn, reps=20)
+            k2 = time_cuda(kfn, reps=20)
+            p2 = time_cuda(pfn, reps=10)
+            ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+            kernel_times[(name, n)] = (ms, plain_ms)
+            print(f"  {name:16s} L2 N={n:2d} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return infer_ms, per_frame_chunk, kernel_times
+
+
+@phase("profile")
+def profile_phase(fe, variables, imgs, out_dir):
+    """Device time by kernel name for one `infer` and one `infer_chunk` call
+    (torch.profiler), and the device-busy share of the call's wall time. The
+    profiler's own host cost lengthens the wall time, so the share is a
+    lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    result = {}
+    calls = (("infer", lambda: fe.infer(variables, imgs[1], imgs[0])),
+             ("infer_chunk", lambda: fe.infer_chunk(variables, imgs)))
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(
+            ((e.key, e.count, e.self_device_time_total / 1e3)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+            key=lambda r: -r[2],
+        )
+        busy_ms = sum(r[2] for r in rows)
+        launches = sum(r[1] for r in rows)
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+                    f"{launches} kernels\n")
+            for key, count, ms in rows:
+                f.write(f"{ms:10.4f} ms {count:6d}x  {key}\n")
+        print(f"  {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+              f"({100 * busy_ms / wall_ms:.1f} %), {launches} kernels")
+        for key, count, ms in rows[:8]:
+            print(f"    {ms:8.3f} ms {count:5d}x  {key[:90]}")
+        result[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                        "kernels": launches,
+                        "top": [[k, c, ms] for k, c, ms in rows[:20]]}
+    return result
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke", "chip_smoke.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script needs "
+              "one NVIDIA GPU", file=sys.stderr)
+        return 1
+    import dfvo_torch  # noqa: F401  (fails here outside a checkout)
+
+    t_start = time.perf_counter()
+
+    smi = device_phase()
+    build_phase()
+    chk = Checker(SEED)
+    kernels_phase(chk)
+    fe, variables, imgs, launches = slice_phase(SEED)
+    parity = parity_phase(SEED, imgs)
+    infer_ms, chunk_ms, ktimes = times_phase(chk, fe, variables, imgs)
+    out_dir = os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(out_dir, exist_ok=True)
+    profile = profile_phase(fe, variables, imgs, out_dir)
+
+    sources = {
+        "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
+        "reg_scale_filter": ("dfvo_torch/csrc/regfilter.cu", "dfvo_tpu/ops/regfilter.py:64"),
+        "head_conv": ("dfvo_torch/csrc/headconv.cu", "dfvo_tpu/ops/headconv.py:65"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": chk.max_abs_err[name],
+         "ms": ktimes[(name, 2)][0], "plain_ms": ktimes[(name, 2)][1]}
+        for name, (src, rep) in sources.items()
+    ]
+    report = {
+        "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "infer_ms_per_frame": infer_ms, "infer_chunk_ms_per_frame": chunk_ms,
+        "kernel_ms_l2": {f"{k} N={n}": {"ms": v[0], "plain_ms": v[1]}
+                         for (k, n), v in ktimes.items()},
+        "parity_f32_gpu_vs_cpu": parity, "kernels": kernels, "profile": profile,
+        "seconds": time.perf_counter() - t_start,
+    }
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"total {report['seconds']:.1f} s; report in {os.path.relpath(args.out, ROOT)}")
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

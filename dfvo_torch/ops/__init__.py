@@ -1,0 +1,1 @@
+"""Ops of the port: plain PyTorch versions and their CUDA kernels."""

@@ -1,0 +1,83 @@
+"""Tiny-output-channel "head" convolutions (Cout <= 4, stride 1).
+
+Counterpart of ``dfvo_tpu/ops/headconv.py``. Serves LiteFlowNet's
+flow-delta heads (k = 7/5/3, Cout = 2, 'same' zero padding) and
+Monodepth2's disparity heads (3x3, Cout = 1, reflect-padded by the caller).
+
+* ``head_conv_plain``: ``F.conv2d`` in float32; the CPU path and the oracle
+  of the CUDA kernel.
+* ``head_conv_cuda``: the kernel ``csrc/headconv.cu``.
+* ``head_conv``: plain on the CPU, the kernel on a CUDA device.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+
+
+def head_conv_plain(x, kernel, bias=None, prepadded=False):
+    """[N,H,W,Cin] x [k,k,Cin,Cout] -> [N,H',W',Cout] in x's dtype.
+
+    'Same' zero padding, or ``prepadded=True`` for an input already padded
+    by (k-1)//2 per side (a VALID conv)."""
+    k = kernel.shape[0]
+    pad = 0 if prepadded else (k - 1) // 2
+    y = F.conv2d(
+        x.permute(0, 3, 1, 2).float(),
+        kernel.permute(3, 2, 0, 1).float(),
+        None if bias is None else bias.float(),
+        padding=pad,
+    )
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def head_conv_cuda(x, kernel, bias=None, prepadded=False):
+    """Launch ``csrc/headconv.cu``; same semantics as the plain version.
+
+    Takes a CUDA float32 or bfloat16 NHWC input, an odd k <= 7, Cout <= 4
+    and at most 48 KB of float32 weights; raises for anything else."""
+    tensors = (x, kernel) if bias is None else (x, kernel, bias)
+    cuda_lib.require_cuda("head_conv", *tensors)
+    if x.dim() != 4 or kernel.dim() != 4:
+        raise ValueError("head_conv: x must be NHWC and kernel [k,k,Cin,Cout]")
+    n, in_h, in_w, cin = x.shape
+    k, k2, kcin, cout = kernel.shape
+    if k != k2 or k % 2 == 0 or k > 7 or kcin != cin or not 1 <= cout <= 4:
+        raise ValueError(
+            f"head_conv: kernel {tuple(kernel.shape)} must be [k,k,{cin},Cout] "
+            "with odd k <= 7 and Cout <= 4"
+        )
+    if 4 * k * k * cin * cout > 48 * 1024:
+        raise ValueError("head_conv: weights exceed 48 KB of shared memory")
+    if bias is not None and bias.numel() != cout:
+        raise ValueError(f"head_conv: bias must hold {cout} values")
+    if prepadded:
+        pad, out_h, out_w = 0, in_h - (k - 1), in_w - (k - 1)
+    else:
+        pad, out_h, out_w = (k - 1) // 2, in_h, in_w
+    x = x.contiguous()
+    wts = kernel.float().contiguous()
+    b = None if bias is None else bias.float().contiguous()
+    out = torch.empty((n, out_h, out_w, cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    rc = cuda_lib.load().dfvo_headconv(
+        x.data_ptr(), wts.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(), n, in_h, in_w, cin, out_h, out_w, k, cout, pad,
+        cuda_lib.dtype_code(x.dtype), cuda_lib.stream_of(x),
+    )
+    cuda_lib.check(rc, "head_conv")
+    head_conv_cuda.launches += 1
+    return out
+
+
+head_conv_cuda.launches = 0
+
+
+def head_conv(x, kernel, bias=None, prepadded=False):
+    """Small-Cout conv, stride 1: plain on the CPU, the CUDA kernel on a
+    CUDA device."""
+    if x.device.type == "cpu":
+        return head_conv_plain(x, kernel, bias, prepadded)
+    return head_conv_cuda(x, kernel, bias, prepadded)
