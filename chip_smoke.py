@@ -8,18 +8,26 @@ seconds, none caught:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for every float32 comparison.
-2. build: the CUDA kernels of dfvo_torch/csrc, compiled with nvcc for sm_90a.
+2. build: the CUDA kernels of dfvo_torch/csrc, compiled with nvcc for
+   sm_90a; registers and spills of each kernel from `ptxas -v`.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the main path gives it, in float32 and bfloat16.
+   every shape the main path gives it, in float32 (the cuda_core variants)
+   and bfloat16 (the tensor_core variants of the head conv and the cost
+   volume), and the off-path cases.
 4. slice: DeepFrontend from options/examples/default_configuration.yml
    (192x640, bfloat16, seeded random weights) runs `infer` on 8 consecutive
    pairs of synthetic frames, `infer_chunk` on a 33-frame chunk and
    `local_bestN` on every pair; launch counters must show each kernel on
-   that path (5 correlations, 5 regularization filters, 14 head convs per
-   network call).
-5. parity: the float32 slice on the card against the plain slice on the CPU.
+   that path (5 correlations and 14 head convs per network call, all
+   tensor_core, and 5 regularization filters).
+5. parity: the float32 slice on the card against the plain slice on the
+   CPU, and the bfloat16 slice with the kernels against the same slice with
+   the three CUDA wrappers swapped for their plain versions.
 6. times: CUDA-event medians of `infer` and `infer_chunk` per frame, and of
-   each kernel against its plain version at the level-2 shapes.
+   every kernel at every main-path shape (N = 64 LiteFlowNet, N = 32 depth,
+   and level 2 at N = 2) beside its plain version, its bound and, for the
+   head conv, one cuDNN `F.conv2d` call (the yardstick; the port never
+   calls it).
 7. profile: device time by kernel name of one `infer` and one
    `infer_chunk` call (torch.profiler), written next to the report as
    profile_infer.txt and profile_infer_chunk.txt.
@@ -35,6 +43,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +75,12 @@ SEED = 0
 INFER_PAIRS = 8
 CHUNK_FRAMES = 33
 PER_CALL = {"correlation": 5, "reg_scale_filter": 5, "head_conv": 14}
+# the variant each kernel's bf16 main-path launches must take
+MAIN_VARIANT = {"correlation": "tensor_core", "reg_scale_filter": "cuda_core",
+                "head_conv": "tensor_core"}
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
+# tensor-core FLOP/s, float32 CUDA-core FLOP/s
+PEAK_BYTES, PEAK_BF16_TC, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 
 def phase(name):
@@ -113,10 +128,33 @@ def build_phase():
           f"{cuda_lib.build_seconds if cuda_lib.build_seconds is not None else 0.0:.1f} s "
           f"(loaded in {time.perf_counter() - t0:.1f} s)")
     log = cuda_lib.BUILD_DIR / "build.log"
+    ptxas = {}
     if log.is_file():
+        name = None
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                ptxas[name] = {}
+            elif name and "spill stores" in line:
+                ptxas[name]["spill"] = line.strip()
+            elif name and "Used" in line and "registers" in line:
+                ptxas[name]["regs"] = line.split(":", 1)[1].strip()
+    for name, info in ptxas.items():
+        print(f"  ptxas {short_kernel_name(name)}: {info.get('regs')}; {info.get('spill')}")
+    return ptxas
+
+
+def short_kernel_name(mangled):
+    """dfvo::headconv_tc_kernel<7, 2> from its mangled name, roughly."""
+    m = re.match(r"_ZN4dfvo\d+(\w+?)I(.*)", mangled)
+    if not m:
+        return mangled
+    targs = m.group(2).split("Ev", 1)[0]
+    args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)(?=Lb|Li)|Lb([01])E", targs)
+    vals = [a or ("bf16" if b else "float" if c else ("true" if d == "1" else "false"))
+            for a, b, c, d in args]
+    return f"{m.group(1).split('ILi')[0]}<{', '.join(vals)}>"
 
 
 class Checker:
@@ -124,7 +162,8 @@ class Checker:
 
     def __init__(self, seed):
         self.rng = np.random.default_rng(seed)
-        self.max_abs_err = {k: 0.0 for k in PER_CALL}
+        self.max_abs_err = {k: 0.0 for k in PER_CALL}  # bf16, main-path variant
+        self.max_abs_err_f32 = {k: 0.0 for k in PER_CALL}
 
     def randn(self, shape, scale=1.0):
         a = self.rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
@@ -134,11 +173,15 @@ class Checker:
         a = self.rng.random(shape, dtype=np.float32) * np.float32(hi - lo) + np.float32(lo)
         return torch.from_numpy(a).cuda()
 
-    def compare(self, kernel, label, kernel_fn, plain_fn, inputs, prep=None):
+    def compare(self, kernel, label, kernel_fn, plain_fn, inputs, prep=None,
+                main_path=True):
         """Kernel vs plain version in float32, then in bfloat16 against the
         plain version in float32 on the same bf16-rounded inputs. ``prep``
-        re-lays the kernel's inputs (same values) before the launch."""
+        re-lays the kernel's inputs (same values) before the launch. At a
+        main-path shape the bf16 launch must take the kernel's main-path
+        variant."""
         prep = prep or (lambda t: t)
+        counter = launch_counts()[kernel]
         # float32: max abs error <= 1e-4 * max(1, max|ref|)
         got = kernel_fn(*[prep(t) for t in inputs])
         ref = plain_fn(*inputs)
@@ -147,20 +190,30 @@ class Checker:
         torch.cuda.synchronize()
         if not err <= 1e-4 * scale:
             fail(f"{kernel} {label} float32: max abs err {err:.3e} > {1e-4 * scale:.3e}")
-        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        self.max_abs_err_f32[kernel] = max(self.max_abs_err_f32[kernel], err)
         # bfloat16: |got - ref| <= 2e-2 |ref| (output rounding) + the float32
         # bound above (summation order)
         inputs_bf = [t.bfloat16() for t in inputs]
+        before = dict(getattr(counter, "variant_launches", {}))
         got = kernel_fn(*[prep(t) for t in inputs_bf])
+        after = getattr(counter, "variant_launches", {})
+        variant = next((v for v in after if after[v] != before.get(v)), "cuda_core")
         if got.dtype != torch.bfloat16:
             fail(f"{kernel} {label}: bfloat16 input gave {got.dtype}")
         ref = plain_fn(*[t.float() for t in inputs_bf])
-        excess = ((got.float() - ref).abs() - 2e-2 * ref.abs()).max().item()
+        abs_err = (got.float() - ref).abs()
+        excess = (abs_err - 2e-2 * ref.abs()).max().item()
         scale = max(1.0, ref.abs().max().item())
         torch.cuda.synchronize()
         if not excess <= 1e-4 * scale:
-            fail(f"{kernel} {label} bfloat16: error exceeds 2e-2 |ref| by {excess:.3e}")
-        print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok", flush=True)
+            fail(f"{kernel} {label} bfloat16 ({variant}): error exceeds 2e-2 |ref| "
+                 f"by {excess:.3e}")
+        if main_path:
+            if variant != MAIN_VARIANT[kernel]:
+                fail(f"{kernel} {label} bfloat16 ran {variant}, not {MAIN_VARIANT[kernel]}")
+            self.max_abs_err[kernel] = max(self.max_abs_err[kernel], abs_err.max().item())
+        print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok ({variant}, "
+              f"max abs err {abs_err.max().item():.2e})", flush=True)
 
 
 @phase("kernels")
@@ -193,40 +246,45 @@ def kernels_phase(chk):
     for n in DEPTH_BATCHES:
         for name, hwc, cout, k, pre in DEPTH_HEADS:
             check_head(chk, name, n, hwc, cout, k, pre, head_conv_cuda, head_conv_plain)
-    # off the main path: channel counts that do not fill 16-byte vectors and
-    # a base address that is not 16-byte aligned take the kernels' scalar
-    # loops
+    # off the main path (the cuda_core variants in bf16 too): channel counts
+    # that do not fill 16-byte vectors and a base address that is not
+    # 16-byte aligned take the kernels' scalar loops
     f1, f2 = chk.randn((2, 12, 40, 33)), chk.randn((2, 12, 40, 33))
     chk.compare("correlation", "c=33 [2, 12, 40, 33]",
                 lambda a, b: correlation_cuda(a, b, 3, 1),
-                lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2))
+                lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2), main_path=False)
     f1, f2 = chk.randn((2, 12, 40, 64)), chk.randn((2, 12, 40, 64))
     chk.compare("correlation", "unaligned [2, 12, 40, 64]",
                 lambda a, b: correlation_cuda(a, b, 3, 1),
                 lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2),
-                prep=misaligned)
+                prep=misaligned, main_path=False)
     check_head(chk, "cin=3", 2, (24, 80, 3), 2, 5, False, head_conv_cuda,
-               head_conv_plain)
+               head_conv_plain, main_path=False)
     check_head(chk, "unaligned", 2, (24, 80, 32), 2, 5, False, head_conv_cuda,
-               head_conv_plain, prep=misaligned)
-    # the cost volume's other window (HD3, off this path) and its stride-2 form
+               head_conv_plain, prep=misaligned, main_path=False)
+    # the cost volume's other window (HD3, off this path) and its stride-2
+    # form (tensor_core in bf16)
     f1, f2 = chk.randn((2, 24, 80, 64)), chk.randn((2, 24, 80, 64))
     chk.compare("correlation", "D=4 [2, 24, 80, 64]",
                 lambda a, b: correlation_cuda(a, b, 4, 1),
-                lambda a, b: correlation_plain(a, b, 4, 1), (f1, f2))
+                lambda a, b: correlation_plain(a, b, 4, 1), (f1, f2), main_path=False)
     chk.compare("correlation", "stride 2 [2, 48, 160, 64]",
                 lambda a, b: correlation_cuda(a, b, 3, 2),
                 lambda a, b: correlation_plain(a, b, 3, 2),
-                (chk.randn((2, 48, 160, 64)), chk.randn((2, 48, 160, 64))))
+                (chk.randn((2, 48, 160, 64)), chk.randn((2, 48, 160, 64))),
+                main_path=False)
 
 
-def check_head(chk, name, n, hwc, cout, k, pre, kernel_fn, plain_fn, prep=None):
+def check_head(chk, name, n, hwc, cout, k, pre, kernel_fn, plain_fn, prep=None,
+               main_path=True):
     x = chk.randn((n, *hwc))
-    kern = chk.randn((k, k, hwc[2], cout), 1.0 / math.sqrt(k * k * hwc[2]))
+    # as HeadConv passes it: the OIHW parameter, permuted (not copied)
+    kern = chk.randn((cout, hwc[2], k, k), 1.0 / math.sqrt(k * k * hwc[2])).permute(2, 3, 1, 0)
     bias = chk.randn((cout,), 0.1)
     chk.compare("head_conv", f"{name} {[n, *hwc]}",
                 lambda a, b, c: kernel_fn(a, b, c, pre),
-                lambda a, b, c: plain_fn(a, b, c, pre), (x, kern, bias), prep)
+                lambda a, b, c: plain_fn(a, b, c, pre), (x, kern, bias), prep,
+                main_path)
 
 
 def misaligned(t):
@@ -289,6 +347,8 @@ def slice_phase(seed):
     counters = launch_counts()
     for fn in counters.values():
         fn.launches = 0
+        for v in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[v] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs, kps = [], []
@@ -304,6 +364,8 @@ def slice_phase(seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    variants = {k: dict(fn.variant_launches) for k, fn in counters.items()
+                if hasattr(fn, "variant_launches")}
 
     for out in outs:
         check_finite("depth_cur", out["depth_cur"], (h, w))
@@ -328,25 +390,38 @@ def slice_phase(seed):
     print(f"  depth {outs[0]['depth_cur'].min().item():.3f}..{outs[0]['depth_cur'].max().item():.3f}, "
           f"|flow_fwd| max {outs[0]['flow_fwd'].abs().max().item():.4f}, "
           f"valid kp {int(kps[0]['valid'].sum())}/{n_kp}, good {bool(kps[0]['good_kp_found'])}")
+    print(f"  launches by variant {variants}")
     if launches != expected:
         fail(f"launch counts {launches} != {expected}")
+    for k, by in variants.items():
+        if by[MAIN_VARIANT[k]] != expected[k]:
+            fail(f"{k}: {by} launches by variant, expected all {expected[k]} "
+                 f"{MAIN_VARIANT[k]}")
     return fe, variables, imgs, launches
+
+
+def parity_variables(fe, seed):
+    """Seeded float32 variables with the flow-delta heads scaled x40, so
+    flows span pixels and every warp samples between pixels; random weights
+    alone give flows of ~0.02 px."""
+    variables = fe.init_variables(torch.Generator().manual_seed(seed + 1))
+    for k in variables["flow"]:
+        if k.endswith("moduleMain.6.weight") and "Regularization" not in k:
+            variables["flow"][k] = variables["flow"][k] * 40.0
+    return variables
 
 
 @phase("parity")
 def parity_phase(seed, imgs):
-    """float32 slice on the card vs the plain slice on the CPU, same weights.
-    The flow-delta heads are scaled x40 so flows span pixels and every warp
-    samples between pixels; random weights alone give flows of ~0.02 px."""
+    """float32 slice on the card vs the plain slice on the CPU, and the
+    bfloat16 slice with the kernels vs the bfloat16 slice with the plain
+    versions on the card; same weights throughout."""
     from dfvo_torch.pipeline.frontend import DeepFrontend
 
     cfg = load_cfg("float32")
     fe_gpu = DeepFrontend(cfg, "cuda")
     fe_cpu = DeepFrontend(cfg, "cpu")
-    variables = fe_gpu.init_variables(torch.Generator().manual_seed(seed + 1))
-    for k in variables["flow"]:
-        if k.endswith("moduleMain.6.weight") and "Regularization" not in k:
-            variables["flow"][k] = variables["flow"][k] * 40.0
+    variables = parity_variables(fe_gpu, seed)
     v_gpu = fe_gpu.prepare_variables(variables)
     v_cpu = fe_cpu.prepare_variables(variables)
     worst = {}
@@ -364,7 +439,58 @@ def parity_phase(seed, imgs):
             worst[key] = max(worst.get(key, 0.0), err)
             if not err <= 1e-2:
                 fail(f"pair {i}: {key} max abs error {err:.3e} px > 1e-2")
-        print(f"  pair {i}: |flow_fwd| max {want['flow_fwd'].abs().max().item():.2f} px, "
+        print(f"  f32 GPU vs CPU, pair {i}: |flow_fwd| max {want['flow_fwd'].abs().max().item():.2f} px, "
+              f"errors {({k: f'{v:.2e}' for k, v in worst.items()})}", flush=True)
+    worst_bf16 = bf16_kernels_vs_plain(imgs, variables)
+    return {"f32_gpu_vs_cpu": worst, "bf16_kernels_vs_plain": worst_bf16}
+
+
+# bf16 slice, kernels vs plain versions: both round every activation to
+# bf16 (2^-8 relative) and differ only in the kernels' summation order,
+# which can flip a rounding; such flips travel through the later layers
+BF16_FLOW_ATOL_PX = 3e-2
+BF16_DEPTH_RTOL = 3e-2
+
+
+def bf16_kernels_vs_plain(imgs, variables):
+    """The bf16 slice through the CUDA kernels against the same slice with
+    the dispatchers' three ``*_cuda`` functions swapped for their plain
+    versions (in this script only)."""
+    from dfvo_torch.ops import correlation as corr_mod
+    from dfvo_torch.ops import headconv as head_mod
+    from dfvo_torch.ops import regfilter as reg_mod
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+
+    fe = DeepFrontend(load_cfg(), "cuda")  # the YAML's bfloat16
+    v = fe.prepare_variables(variables)
+    pairs = (1, 2)
+    with_kernels = [fe.infer(v, imgs[i], imgs[i - 1]) for i in pairs]
+    swaps = ((corr_mod, "correlation_cuda", corr_mod.correlation_plain),
+             (head_mod, "head_conv_cuda", head_mod.head_conv_plain),
+             (reg_mod, "reg_scale_filter_cuda", reg_mod.reg_scale_filter_plain))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        with_plain = [fe.infer(v, imgs[i], imgs[i - 1]) for i in pairs]
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    worst = {}
+    for i, got, want in zip(pairs, with_kernels, with_plain):
+        d_got, d_want = got["depth_cur"].float(), want["depth_cur"].float()
+        rel = ((d_got - d_want).abs() / d_want.abs()).max().item()
+        worst["depth_cur rel"] = max(worst.get("depth_cur rel", 0.0), rel)
+        if not rel <= BF16_DEPTH_RTOL:
+            fail(f"bf16 pair {i}: depth_cur relative error {rel:.3e} > {BF16_DEPTH_RTOL}")
+        for key in ("flow_fwd", "flow_bwd", "flow_diff"):
+            err = (got[key].float() - want[key].float()).abs().max().item()
+            worst[key] = max(worst.get(key, 0.0), err)
+            if not err <= BF16_FLOW_ATOL_PX:
+                fail(f"bf16 pair {i}: {key} max abs error {err:.3e} px > {BF16_FLOW_ATOL_PX}")
+        print(f"  bf16 kernels vs plain, pair {i}: |flow_fwd| max "
+              f"{want['flow_fwd'].float().abs().max().item():.2f} px, "
               f"errors {({k: f'{v:.2e}' for k, v in worst.items()})}", flush=True)
     return worst
 
@@ -386,13 +512,106 @@ def time_cuda(fn, reps, rounds=5):
     return statistics.median(samples)
 
 
-@phase("times")
-def times_phase(chk, fe, variables, imgs):
+def device_ms(fn, reps=20):
+    """Device time per call: the device time of every kernel that ``reps``
+    calls launch (torch.profiler), summed, over ``reps``. Unlike a CUDA-event
+    interval it leaves out the gaps while the host launches the next call,
+    which set the pace of small shapes on a slow host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps
+
+
+def bound(nbytes, flops, peak_flops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    each input byte read once and each output byte written once against
+    the HBM rate, the operations against the peak rate for their type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timing_cases(chk):
+    """Every kernel at every main-path shape of one `infer_chunk` network
+    call (N = 64 LiteFlowNet, N = 32 depth), with its launches in that call,
+    and level 2 at N = 2 (`infer`, not in the per-call sums). Inputs in
+    bf16, laid out as the path gives them."""
     from dfvo_torch.ops.correlation import correlation_plain
     from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
     from dfvo_torch.ops.pallas_corr import correlation_cuda
     from dfvo_torch.ops.regfilter import reg_scale_filter_cuda, reg_scale_filter_plain
 
+    bf = torch.bfloat16
+    cases = []
+    for n, per_call, levels in ((64, 1, (6, 5, 4, 3, 2)), (2, 0, (2,))):
+        for lvl, (h, w, c) in CORR_SHAPES:
+            if lvl not in levels:
+                continue
+            f1 = chk.randn((n, 2 * h, 2 * w, c) if lvl <= 3 else (n, h, w, c)).to(bf)
+            f1 = f1[:, ::2, ::2] if lvl <= 3 else f1
+            f2 = chk.randn((n, h, w, c)).to(bf)
+            kk = 49
+            cases.append(dict(
+                kernel="correlation", shape=f"L{lvl} [{n}, {h}, {w}, {c}]", n=n,
+                per_call=per_call,
+                kfn=lambda f1=f1, f2=f2: correlation_cuda(f1, f2, 3, 1),
+                pfn=lambda f1=f1, f2=f2: correlation_plain(f1, f2, 3, 1), lfn=None,
+                bound=bound(2 * (2 * n * h * w * c + n * h * w * kk),
+                            2 * n * h * w * kk * c, PEAK_BF16_TC)))
+        for lvl, (h, w), k in REG_SHAPES:
+            if lvl not in levels:
+                continue
+            kk = k * k
+            dist = chk.rand((n, h, w, kk), 0.05, 1.0).to(bf)
+            flow = chk.randn((n, h, w, 2), 4.0).to(bf)
+            p = [chk.randn((1, 1, kk, 1)).to(bf), chk.randn((1,)).to(bf),
+                 chk.randn((1, 1, kk, 1)).to(bf), chk.randn((1,)).to(bf)]
+            cases.append(dict(
+                kernel="reg_scale_filter", shape=f"L{lvl} k{k} [{n}, {h}, {w}]", n=n,
+                per_call=per_call,
+                kfn=lambda d=dist, f=flow, p=p, k=k: reg_scale_filter_cuda(d, f, *p, k),
+                pfn=lambda d=dist, f=flow, p=p, k=k: reg_scale_filter_plain(d, f, *p, k),
+                lfn=None,
+                # f32 CUDA-core work: k² adds for the divisor, 3 ops per tap
+                # and component, the bias adds and the division
+                bound=bound(2 * (n * h * w * (kk + 4) + 2 * kk + 2),
+                            n * h * w * (7 * kk + 5), PEAK_F32)))
+        heads = [(name, hwc, cout, k, pre, 2 * per_call) for name, hwc, cout, k, pre in LFN_HEADS
+                 if int(name.split("L")[1]) in levels]
+        if n == 64:
+            heads += [(name, hwc, cout, k, pre, 1) for name, hwc, cout, k, pre in DEPTH_HEADS]
+        for name, (h, w, cin), cout, k, pre, calls in heads:
+            nn_ = 32 if name.startswith("dispconv") else n
+            x = chk.randn((nn_, h, w, cin)).to(bf)
+            w_oihw = chk.randn((cout, cin, k, k), 1.0 / math.sqrt(k * k * cin)).to(bf)
+            kern = w_oihw.permute(2, 3, 1, 0)
+            bias = chk.randn((cout,), 0.1).to(bf)
+            pad = 0 if pre else (k - 1) // 2
+            oh, ow = h - 2 * ((k - 1) // 2 - pad), w - 2 * ((k - 1) // 2 - pad)
+            cases.append(dict(
+                kernel="head_conv", shape=f"{name} [{nn_}, {h}, {w}, {cin}]", n=nn_,
+                per_call=calls,
+                kfn=lambda x=x, kern=kern, b=bias, pre=pre: head_conv_cuda(x, kern, b, pre),
+                pfn=lambda x=x, kern=kern, b=bias, pre=pre: head_conv_plain(x, kern, b, pre),
+                lfn=lambda x=x, w=w_oihw, b=bias, pad=pad: torch.nn.functional.conv2d(
+                    x.permute(0, 3, 1, 2), w, b, padding=pad),
+                bound=bound(2 * (nn_ * h * w * cin + nn_ * oh * ow * cout
+                                 + k * k * cin * cout + cout),
+                            2 * nn_ * oh * ow * k * k * cin * cout, PEAK_BF16_TC)))
+    return cases
+
+
+@phase("times")
+def times_phase(chk, fe, variables, imgs):
     infer_ms = time_cuda(lambda: fe.infer(variables, imgs[1], imgs[0]), reps=5)
     chunk_ms = time_cuda(lambda: fe.infer_chunk(variables, imgs), reps=1, rounds=3)
     per_frame_chunk = chunk_ms / (CHUNK_FRAMES - 1)
@@ -400,34 +619,55 @@ def times_phase(chk, fe, variables, imgs):
     print(f"  infer_chunk: {chunk_ms:.3f} ms per {CHUNK_FRAMES}-frame chunk = "
           f"{per_frame_chunk:.3f} ms/frame")
 
-    kernel_times = {}
-    for n in LFN_BATCHES:
-        f1 = chk.randn((n, 96, 320, 64)).bfloat16()[:, ::2, ::2]
-        f2 = chk.randn((n, 48, 160, 64)).bfloat16()
-        dist = chk.rand((n, 96, 320, 49), 0.05, 1.0).bfloat16()
-        flow = chk.randn((n, 96, 320, 2), 4.0).bfloat16()
-        wx, wy = chk.randn((1, 1, 49, 1)).bfloat16(), chk.randn((1, 1, 49, 1)).bfloat16()
-        bx, by = chk.randn((1,)).bfloat16(), chk.randn((1,)).bfloat16()
-        x = chk.randn((n, 96, 320, 32)).bfloat16()
-        kern = chk.randn((7, 7, 32, 2), 0.025).bfloat16()
-        bias = chk.randn((2,), 0.1).bfloat16()
-        cases = {
-            "correlation": (lambda: correlation_cuda(f1, f2, 3, 1),
-                            lambda: correlation_plain(f1, f2, 3, 1)),
-            "reg_scale_filter": (lambda: reg_scale_filter_cuda(dist, flow, wx, bx, wy, by, 7),
-                                 lambda: reg_scale_filter_plain(dist, flow, wx, bx, wy, by, 7)),
-            "head_conv": (lambda: head_conv_cuda(x, kern, bias),
-                          lambda: head_conv_plain(x, kern, bias)),
-        }
-        for name, (kfn, pfn) in cases.items():
-            p1 = time_cuda(pfn, reps=10)
-            k1 = time_cuda(kfn, reps=20)
-            k2 = time_cuda(kfn, reps=20)
-            p2 = time_cuda(pfn, reps=10)
-            ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
-            kernel_times[(name, n)] = (ms, plain_ms)
-            print(f"  {name:16s} L2 N={n:2d} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return infer_ms, per_frame_chunk, kernel_times
+    rows = []
+    print("  device ms per call (torch.profiler); event: CUDA-event ms per call "
+          "back to back, host gaps included")
+    print("  kernel           shape                            ms      event_ms  plain_ms  "
+          "library_ms  bound_ms (by)           share  launches/call")
+    for case in timing_cases(chk):
+        # CUDA events in turns: plain, library, kernel, kernel, library, plain
+        p1 = time_cuda(case["pfn"], reps=5, rounds=3)
+        l1 = time_cuda(case["lfn"], reps=20) if case["lfn"] else None
+        k1 = time_cuda(case["kfn"], reps=20)
+        k2 = time_cuda(case["kfn"], reps=20)
+        l2 = time_cuda(case["lfn"], reps=20) if case["lfn"] else None
+        p2 = time_cuda(case["pfn"], reps=5, rounds=3)
+        bound_ms, bound_by = case["bound"]
+        row = {"kernel": case["kernel"], "shape": case["shape"], "n": case["n"],
+               "launches_per_call": case["per_call"],
+               "ms": device_ms(case["kfn"]), "plain_ms": device_ms(case["pfn"], reps=3),
+               "library_ms": device_ms(case["lfn"]) if case["lfn"] else None,
+               "event_ms": statistics.median([k1, k2]),
+               "event_plain_ms": statistics.median([p1, p2]),
+               "event_library_ms": None if l1 is None else statistics.median([l1, l2]),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        row["share_of_bound"] = bound_ms / row["ms"]
+        rows.append(row)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        print(f"  {row['kernel']:16s} {row['shape']:32s} {row['ms']:.4f}  {row['event_ms']:.4f}  "
+              f"{row['plain_ms']:8.4f}  {lib:>10s}  {bound_ms:.4f} ({bound_by:10s})  "
+              f"{100 * row['share_of_bound']:5.1f} %  {row['launches_per_call']}", flush=True)
+    sums = {}
+    for name in PER_CALL:
+        mine = [r for r in rows if r["kernel"] == name and r["launches_per_call"]]
+        tot = lambda key: sum(r["launches_per_call"] * r[key] for r in mine)
+        by_bytes = sum(r["launches_per_call"] * r["bound_ms"] for r in mine
+                       if r["bound_by"] == "bytes")
+        sums[name] = {
+            "ms": tot("ms"), "event_ms": tot("event_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_by": "bytes" if by_bytes >= tot("bound_ms") / 2 else "operations",
+            "library_ms": (tot("library_ms") if all(r["library_ms"] is not None for r in mine)
+                           else None),
+            "launches_per_call": sum(r["launches_per_call"] for r in mine)}
+        s = sums[name]
+        lib = "none: no single PyTorch call computes this" if s["library_ms"] is None \
+            else f"{s['library_ms']:.4f} ms"
+        print(f"  per infer_chunk network call, {name}: {s['launches_per_call']} launches, "
+              f"kernel {s['ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
+              f"share {100 * s['bound_ms'] / s['ms']:.1f} %, plain {s['plain_ms']:.4f} ms, "
+              f"library {lib}")
+    return infer_ms, per_frame_chunk, rows, sums
 
 
 @phase("profile")
@@ -485,12 +725,12 @@ def main():
     t_start = time.perf_counter()
 
     smi = device_phase()
-    build_phase()
+    ptxas = build_phase()
     chk = Checker(SEED)
     kernels_phase(chk)
     fe, variables, imgs, launches = slice_phase(SEED)
     parity = parity_phase(SEED, imgs)
-    infer_ms, chunk_ms, ktimes = times_phase(chk, fe, variables, imgs)
+    infer_ms, chunk_ms, rows, sums = times_phase(chk, fe, variables, imgs)
     out_dir = os.path.dirname(os.path.abspath(args.out))
     os.makedirs(out_dir, exist_ok=True)
     profile = profile_phase(fe, variables, imgs, out_dir)
@@ -500,18 +740,25 @@ def main():
         "reg_scale_filter": ("dfvo_torch/csrc/regfilter.cu", "dfvo_tpu/ops/regfilter.py:64"),
         "head_conv": ("dfvo_torch/csrc/headconv.cu", "dfvo_tpu/ops/headconv.py:65"),
     }
+    # times, bounds and library times are sums over one infer_chunk network
+    # call (N = 64 LiteFlowNet, N = 32 depth), weighted by the launches at
+    # each shape; per-shape rows are in the report
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": chk.max_abs_err[name],
-         "ms": ktimes[(name, 2)][0], "plain_ms": ktimes[(name, 2)][1]}
+         "variant": MAIN_VARIANT[name], "launches": launches[name],
+         "launches_per_call": sums[name]["launches_per_call"],
+         "max_abs_err": chk.max_abs_err[name],
+         "ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],
+         "bound_ms": sums[name]["bound_ms"], "bound_by": sums[name]["bound_by"],
+         "library_ms": sums[name]["library_ms"]}
         for name, (src, rep) in sources.items()
     ]
     report = {
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "infer_ms_per_frame": infer_ms, "infer_chunk_ms_per_frame": chunk_ms,
-        "kernel_ms_l2": {f"{k} N={n}": {"ms": v[0], "plain_ms": v[1]}
-                         for (k, n), v in ktimes.items()},
-        "parity_f32_gpu_vs_cpu": parity, "kernels": kernels, "profile": profile,
+        "kernel_rows": rows, "per_call": sums, "ptxas": ptxas,
+        "max_abs_err_f32": chk.max_abs_err_f32,
+        "parity": parity, "kernels": kernels, "profile": profile,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:

@@ -84,6 +84,21 @@ class HeadConv(nn.Module):
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _reflect_index(n, device):
+    """Source indices of a 1-pixel reflect pad of n: 1, 0, 1, ..., n-1, n-2."""
+    idx = np.concatenate([[1], np.arange(n), [n - 2]])
+    return torch.as_tensor(idx, device=device)
+
+
+def reflect_pad1_nhwc(x):
+    """1-pixel reflect pad of H and W as one gather, in NHWC memory (the
+    head-conv kernel reads whole pixels; the reflect pad of the NCHW view
+    returns NCHW memory on the card)."""
+    h, w = x.shape[1:3]
+    return x[:, _reflect_index(h, x.device)[:, None], _reflect_index(w, x.device)[None, :]]
+
+
 class Conv3x3(nn.Module):
     """Reflection-padded 3x3 convolution; Cout <= 4 runs as a pre-padded
     head conv."""
@@ -97,8 +112,9 @@ class Conv3x3(nn.Module):
             self.conv = Conv2d(in_ch, out_ch, 3, device=device)
 
     def forward(self, x):
-        x = to_nhwc(F.pad(to_nchw(x), (1, 1, 1, 1), mode="reflect"))
-        return self.conv(x)
+        if isinstance(self.conv, HeadConv):
+            return self.conv(reflect_pad1_nhwc(x))
+        return self.conv(to_nhwc(F.pad(to_nchw(x), (1, 1, 1, 1), mode="reflect")))
 
 
 class ConvBlock(nn.Module):

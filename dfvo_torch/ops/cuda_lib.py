@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels as one shared library.
 
 The sources in ``dfvo_torch/csrc/`` export plain C functions. They are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one ``.so`` at first use,
+compiled with ``nvcc`` for Hopper (``sm_90a``), one process per source, all
+started together, and linked into one ``.so`` at first use,
 under ``build/dfvo_torch_kernels/`` in the checkout, and loaded with
 ``ctypes``. The library's file name carries a hash of the sources, so an
 edited kernel is rebuilt and a stale library is never loaded. Nothing is
@@ -24,10 +25,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "dfvo_torch_kernels"
 SOURCES = ("correlation.cu", "regfilter.cu", "headconv.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of csrc/common.cuh
@@ -35,14 +35,22 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    # f1, f2, out, n, h, w, c, max_disp, dtype, stream
-    "dfvo_correlation": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # f1, s1n, s1h, s1w, f2, s2n, s2h, s2w, out, n, h, w, c, max_disp, dtype,
+    # stream
+    "dfvo_correlation": (_P, _L, _L, _L, _P, _L, _L, _L, _P) + (_I,) * 6 + (_P,),
+    # the same without dtype (bf16 only)
+    "dfvo_correlation_tc": (_P, _L, _L, _L, _P, _L, _L, _L, _P) + (_I,) * 5 + (_P,),
     # dist, flow, wts, out, n, h, w, k, dtype, stream
     "dfvo_regfilter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, cout, pad,
     # dtype, stream
     "dfvo_headconv": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
+    # x, sxn, sxh, sxw, wts, sw0..sw3, bias, out, n, in_h, in_w, cin, out_h,
+    # out_w, k, cout, pad, stream (bf16 only)
+    "dfvo_headconv_tc": (_P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P)
+    + (_I,) * 9 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -78,12 +86,17 @@ def nvcc_executable():
     return path
 
 
-def build_command(out_path):
-    """The nvcc command line that builds every kernel into ``out_path``."""
-    return (
-        [nvcc_executable(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out_path)]
-        + [str(CSRC_DIR / s) for s in SOURCES]
-    )
+def build_commands(out_path):
+    """The nvcc command lines that build every kernel into ``out_path``: one
+    compile per source (run in parallel), then the link."""
+    nvcc = nvcc_executable()
+    objs = [out_path.with_name(f"{out_path.name}.{Path(s).stem}.o") for s in SOURCES]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(CSRC_DIR / s)]
+        for s, o in zip(SOURCES, objs)
+    ]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out_path), *map(str, objs)]
+    return compiles, link
 
 
 def _build(out_path):
@@ -91,15 +104,23 @@ def _build(out_path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out_path.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        build_command(tmp), capture_output=True, text=True, check=False
-    )
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    compiles, link = build_commands(tmp)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in compiles]
+    logs = [p.communicate()[0] for p in procs]
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, check=False)
+        logs.append(proc.stdout)
+        rcs.append(proc.returncode)
+    log = "".join(logs)
+    (BUILD_DIR / "build.log").write_text(log)
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed ({rcs}):\n{log}")
     os.replace(tmp, out_path)
+    for c in compiles:
+        Path(c[c.index("-o") + 1]).unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 

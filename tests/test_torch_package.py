@@ -61,13 +61,17 @@ def test_build_command_targets_hopper_from_the_checkout(monkeypatch):
     from dfvo_torch.ops import cuda_lib
 
     monkeypatch.setattr(cuda_lib, "nvcc_executable", lambda: "nvcc")
-    cmd = cuda_lib.build_command(cuda_lib.library_path())
-    assert cmd[0] == "nvcc"
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3"} <= set(cmd)
-    sources = [Path(c) for c in cmd if c.endswith(".cu")]
+    compiles, link = cuda_lib.build_commands(cuda_lib.library_path())
+    for cmd in compiles + [link]:
+        assert cmd[0] == "nvcc"
+        assert "arch=compute_90a,code=sm_90a" in cmd
+    assert all({"-c", "-O3"} <= set(cmd) for cmd in compiles)
+    sources = [Path(c) for cmd in compiles for c in cmd if c.endswith(".cu")]
     assert {s.name for s in sources} == {"correlation.cu", "regfilter.cu", "headconv.cu"}
     assert all(s.is_file() and REPO in s.parents for s in sources)
+    objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == str(cuda_lib.library_path())
+    assert set(objs) <= set(link)
     assert REPO in cuda_lib.library_path().parents
 
 
