@@ -13,13 +13,14 @@ seconds, none caught:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape the main path gives it, in float32 (the cuda_core variants)
    and bfloat16 (the tensor_core variants of the head conv and the cost
-   volume), and the off-path cases.
+   volume, the fused normalisation and filter from the raw confidence
+   logits), and the off-path cases.
 4. slice: DeepFrontend from options/examples/default_configuration.yml
    (192x640, bfloat16, seeded random weights) runs `infer` on 8 consecutive
    pairs of synthetic frames, `infer_chunk` on a 33-frame chunk and
    `local_bestN` on every pair; launch counters must show each kernel on
    that path (5 correlations and 14 head convs per network call, all
-   tensor_core, and 5 regularization filters).
+   tensor_core, and 5 regularization filters, async_tile).
 5. parity: the float32 slice on the card against the plain slice on the
    CPU, and the bfloat16 slice with the kernels against the same slice with
    the three CUDA wrappers swapped for their plain versions.
@@ -30,7 +31,8 @@ seconds, none caught:
    calls it).
 7. profile: device time by kernel name of one `infer` and one
    `infer_chunk` call (torch.profiler), written next to the report as
-   profile_infer.txt and profile_infer_chunk.txt.
+   profile_infer.txt and profile_infer_chunk.txt; no pow, neg, amax, sub or
+   exp may run on a [N,H,W,k²] confidence tensor (the kernel normalises it).
 
 Weights and inputs are drawn from SEED.
 
@@ -74,10 +76,12 @@ DEPTH_HEADS = (("dispconv_0", (194, 642, 16), 1, 3, True),
 SEED = 0
 INFER_PAIRS = 8
 CHUNK_FRAMES = 33
-PER_CALL = {"correlation": 5, "reg_scale_filter": 5, "head_conv": 14}
+PER_CALL = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 14}
 # the variant each kernel's bf16 main-path launches must take
-MAIN_VARIANT = {"correlation": "tensor_core", "reg_scale_filter": "cuda_core",
+MAIN_VARIANT = {"correlation": "tensor_core", "reg_dist_filter": "async_tile",
                 "head_conv": "tensor_core"}
+# the normalisation ops that reg_dist_filter fuses, as torch.profiler names them
+PROLOGUE_OPS = ("aten::pow", "aten::neg", "aten::amax", "aten::sub", "aten::exp")
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s, float32 CUDA-core FLOP/s
 PEAK_BYTES, PEAK_BF16_TC, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -221,7 +225,18 @@ def kernels_phase(chk):
     from dfvo_torch.ops.correlation import correlation_plain
     from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
     from dfvo_torch.ops.pallas_corr import correlation_cuda
-    from dfvo_torch.ops.regfilter import reg_scale_filter_cuda, reg_scale_filter_plain
+    from dfvo_torch.ops.regfilter import reg_dist_filter_cuda, reg_dist_filter_plain
+
+    def check_reg(label, n, h, w, k, raw=None, prep=None, main_path=True):
+        # the raw moduleDist logits, as the path gives them
+        raw = chk.randn((n, h, w, k * k), 2.0) if raw is None else raw
+        flow = chk.randn((n, h, w, 2), 4.0)
+        wts = [chk.randn((1, k * k, 1, 1)), chk.randn((1,)),
+               chk.randn((1, k * k, 1, 1)), chk.randn((1,))]
+        chk.compare("reg_dist_filter", label,
+                    lambda d, f, *p: reg_dist_filter_cuda(d, f, *p, k),
+                    lambda d, f, *p: reg_dist_filter_plain(d, f, *p, k),
+                    (raw, flow, *wts), prep=prep, main_path=main_path)
 
     for n in LFN_BATCHES:
         for lvl, (h, w, c) in CORR_SHAPES:
@@ -233,14 +248,7 @@ def kernels_phase(chk):
                         lambda a, b: correlation_cuda(a, b, 3, 1),
                         lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2))
         for lvl, (h, w), k in REG_SHAPES:
-            dist = chk.rand((n, h, w, k * k), 0.05, 1.0)
-            flow = chk.randn((n, h, w, 2), 4.0)
-            wts = [chk.randn((1, 1, k * k, 1)), chk.randn((1,)),
-                   chk.randn((1, 1, k * k, 1)), chk.randn((1,))]
-            chk.compare("reg_scale_filter", f"L{lvl} k{k} {[n, h, w]}",
-                        lambda d, f, *p: reg_scale_filter_cuda(d, f, *p, k),
-                        lambda d, f, *p: reg_scale_filter_plain(d, f, *p, k),
-                        (dist, flow, *wts))
+            check_reg(f"L{lvl} k{k} {[n, h, w]}", n, h, w, k)
         for name, hwc, cout, k, pre in LFN_HEADS:
             check_head(chk, name, n, hwc, cout, k, pre, head_conv_cuda, head_conv_plain)
     for n in DEPTH_BATCHES:
@@ -262,6 +270,14 @@ def kernels_phase(chk):
                head_conv_plain, main_path=False)
     check_head(chk, "unaligned", 2, (24, 80, 32), 2, 5, False, head_conv_cuda,
                head_conv_plain, prep=misaligned, main_path=False)
+    # the regularization filter off the path: ragged tiles on both edges, a
+    # raw and flow one element past an aligned address (unaligned spans and
+    # element-wise flow staging), and logits of +-300 where every tap but the
+    # minimum underflows
+    check_reg("ragged [2, 13, 41] k7", 2, 13, 41, 7, main_path=False)
+    check_reg("unaligned [2, 24, 80] k5", 2, 24, 80, 5, prep=misaligned, main_path=False)
+    big = torch.sign(chk.randn((2, 12, 40, 49))) * chk.rand((2, 12, 40, 49), 300.0, 305.0)
+    check_reg("+-300 [2, 12, 40] k7", 2, 12, 40, 7, raw=big, main_path=False)
     # the cost volume's other window (HD3, off this path) and its stride-2
     # form (tensor_core in bf16)
     f1, f2 = chk.randn((2, 24, 80, 64)), chk.randn((2, 24, 80, 64))
@@ -307,9 +323,9 @@ def make_frames(seed, count, h, w):
 def launch_counts():
     from dfvo_torch.ops.headconv import head_conv_cuda
     from dfvo_torch.ops.pallas_corr import correlation_cuda
-    from dfvo_torch.ops.regfilter import reg_scale_filter_cuda
+    from dfvo_torch.ops.regfilter import reg_dist_filter_cuda
 
-    return {"correlation": correlation_cuda, "reg_scale_filter": reg_scale_filter_cuda,
+    return {"correlation": correlation_cuda, "reg_dist_filter": reg_dist_filter_cuda,
             "head_conv": head_conv_cuda}
 
 
@@ -467,7 +483,7 @@ def bf16_kernels_vs_plain(imgs, variables):
     with_kernels = [fe.infer(v, imgs[i], imgs[i - 1]) for i in pairs]
     swaps = ((corr_mod, "correlation_cuda", corr_mod.correlation_plain),
              (head_mod, "head_conv_cuda", head_mod.head_conv_plain),
-             (reg_mod, "reg_scale_filter_cuda", reg_mod.reg_scale_filter_plain))
+             (reg_mod, "reg_dist_filter_cuda", reg_mod.reg_dist_filter_plain))
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
         for mod, name, plain in swaps:
@@ -522,13 +538,19 @@ def device_ms(fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    # three traces without device activity: time with CUDA events instead
+    # (host gaps included, so an upper bound)
+    print("  (torch.profiler recorded no device time; CUDA-event time instead)")
+    return time_cuda(fn, reps)
 
 
 def bound(nbytes, flops, peak_flops):
@@ -548,7 +570,7 @@ def timing_cases(chk):
     from dfvo_torch.ops.correlation import correlation_plain
     from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
     from dfvo_torch.ops.pallas_corr import correlation_cuda
-    from dfvo_torch.ops.regfilter import reg_scale_filter_cuda, reg_scale_filter_plain
+    from dfvo_torch.ops.regfilter import reg_dist_filter_cuda, reg_dist_filter_plain
 
     bf = torch.bfloat16
     cases = []
@@ -571,20 +593,22 @@ def timing_cases(chk):
             if lvl not in levels:
                 continue
             kk = k * k
-            dist = chk.rand((n, h, w, kk), 0.05, 1.0).to(bf)
+            raw = chk.randn((n, h, w, kk), 2.0).to(bf)
             flow = chk.randn((n, h, w, 2), 4.0).to(bf)
-            p = [chk.randn((1, 1, kk, 1)).to(bf), chk.randn((1,)).to(bf),
-                 chk.randn((1, 1, kk, 1)).to(bf), chk.randn((1,)).to(bf)]
+            p = [chk.randn((1, kk, 1, 1)).to(bf), chk.randn((1,)).to(bf),
+                 chk.randn((1, kk, 1, 1)).to(bf), chk.randn((1,)).to(bf)]
             cases.append(dict(
-                kernel="reg_scale_filter", shape=f"L{lvl} k{k} [{n}, {h}, {w}]", n=n,
+                kernel="reg_dist_filter", shape=f"L{lvl} k{k} [{n}, {h}, {w}]", n=n,
                 per_call=per_call,
-                kfn=lambda d=dist, f=flow, p=p, k=k: reg_scale_filter_cuda(d, f, *p, k),
-                pfn=lambda d=dist, f=flow, p=p, k=k: reg_scale_filter_plain(d, f, *p, k),
+                kfn=lambda d=raw, f=flow, p=p, k=k: reg_dist_filter_cuda(d, f, *p, k),
+                pfn=lambda d=raw, f=flow, p=p, k=k: reg_dist_filter_plain(d, f, *p, k),
                 lfn=None,
-                # f32 CUDA-core work: k² adds for the divisor, 3 ops per tap
-                # and component, the bias adds and the division
+                # f32 CUDA-core work: the normalisation (|raw| min, raw², the
+                # difference and the exp per tap, the minimum's square), then
+                # k² adds for the divisor, 3 ops per tap and component, the
+                # bias adds and the division
                 bound=bound(2 * (n * h * w * (kk + 4) + 2 * kk + 2),
-                            n * h * w * (7 * kk + 5), PEAK_F32)))
+                            n * h * w * (11 * kk + 6), PEAK_F32)))
         heads = [(name, hwc, cout, k, pre, 2 * per_call) for name, hwc, cout, k, pre in LFN_HEADS
                  if int(name.split("L")[1]) in levels]
         if n == 64:
@@ -685,7 +709,8 @@ def profile_phase(fe, variables, imgs, out_dir):
     for name, fn in calls:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -697,6 +722,13 @@ def profile_phase(fe, variables, imgs, out_dir):
         )
         busy_ms = sum(r[2] for r in rows)
         launches = sum(r[1] for r in rows)
+        # the fused normalisation: no prologue op on a [N,H,W,k²] tensor
+        prologue = [(e.name, e.input_shapes[0]) for e in prof.events()
+                    if e.name in PROLOGUE_OPS and e.input_shapes
+                    and len(e.input_shapes[0]) == 4 and e.input_shapes[0][-1] in (9, 25, 49)]
+        print(f"  {name}: {len(prologue)} pow/neg/amax/sub/exp ops on [N,H,W,k²] tensors")
+        if prologue:
+            fail(f"{name}: normalisation ops outside the kernel: {prologue[:5]}")
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
                     f"{launches} kernels\n")
@@ -737,7 +769,7 @@ def main():
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
-        "reg_scale_filter": ("dfvo_torch/csrc/regfilter.cu", "dfvo_tpu/ops/regfilter.py:64"),
+        "reg_dist_filter": ("dfvo_torch/csrc/regfilter.cu", "dfvo_tpu/ops/regfilter.py:64"),
         "head_conv": ("dfvo_torch/csrc/headconv.cu", "dfvo_tpu/ops/headconv.py:65"),
     }
     # times, bounds and library times are sums over one infer_chunk network

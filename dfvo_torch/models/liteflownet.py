@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.correlation import correlation
-from ..ops.regfilter import reg_scale_filter
+from ..ops.regfilter import reg_dist_filter
 from ..ops.warp import flow_to_coords, grid_sample, warp_image_by_flow
 from .layers import Conv2d, ConvTranspose2d, HeadConv, resize_bilinear
 
@@ -188,11 +188,11 @@ class Regularization(nn.Module):
             feat1 = self.moduleFeat(feat1)
         flow_centered = flow - torch.mean(flow, dim=(1, 2), keepdim=True)
         x = self.moduleMain(torch.cat([diff, flow_centered, feat1], dim=-1))
+        # the raw confidence; reg_dist_filter normalises it to
+        # exp(-(dist²) - max(-(dist²))) and filters the flow with it
         dist = self.moduleDist(x)
-        dist = -(dist**2)
-        dist = torch.exp(dist - torch.amax(dist, dim=-1, keepdim=True))
         sx, sy = self.moduleScaleX, self.moduleScaleY
-        return reg_scale_filter(
+        return reg_dist_filter(
             dist, flow, sx.weight, sx.bias, sy.weight, sy.bias,
             _LEVEL_KERNEL[lvl],
         )

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "dfvo_correlation": (_P, _L, _L, _L, _P, _L, _L, _L, _P) + (_I,) * 6 + (_P,),
     # the same without dtype (bf16 only)
     "dfvo_correlation_tc": (_P, _L, _L, _L, _P, _L, _L, _L, _P) + (_I,) * 5 + (_P,),
-    # dist, flow, wts, out, n, h, w, k, dtype, stream
-    "dfvo_regfilter": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # raw, flow, wx, bx, wy, by, wdtype, out, n, h, w, k, dtype, stream
+    "dfvo_reg_dist_filter": (_P,) * 6 + (_I, _P) + (_I,) * 5 + (_P,),
     # x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, cout, pad,
     # dtype, stream
     "dfvo_headconv": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),

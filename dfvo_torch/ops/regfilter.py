@@ -1,4 +1,4 @@
-"""LiteFlowNet Regularization flow filtering.
+"""LiteFlowNet Regularization: confidence normalisation and flow filtering.
 
 Counterpart of ``dfvo_tpu/ops/regfilter.py``: a k x k local filter of the
 flow with per-pixel data-dependent weights ``dist`` times a learned
@@ -6,12 +6,18 @@ per-offset weight,
 
     out_x = (bx + Σ_j dist_j·wx_j·flow_x(p+off_j)) / Σ_j dist_j
 
-and the same for y, with flow zero-padded and taps ky-major.
+and the same for y, with flow zero-padded and taps ky-major. On the path,
+``dist`` is the normalised ``moduleDist`` output,
+``dist = exp(-(raw²) - max_j(-(raw_j²)))`` (``dfvo_tpu/models/liteflownet.py``
+Regularization), and the two steps are one op:
 
 * ``reg_scale_filter_plain``: the tap-major sum in PyTorch (counterpart of
-  ``_unfold_mul_xla``); the CPU path and the oracle of the CUDA kernel.
-* ``reg_scale_filter_cuda``: the kernel ``csrc/regfilter.cu``.
-* ``reg_scale_filter``: plain on the CPU, the kernel on a CUDA device.
+  ``dfvo_tpu.ops.regfilter.reg_scale_filter``, its ``_unfold_mul_xla``).
+* ``reg_dist_filter_plain``: the normalisation, then
+  ``reg_scale_filter_plain``; the CPU path and the oracle of the kernel.
+* ``reg_dist_filter_cuda``: the kernel ``csrc/regfilter.cu``, which
+  normalises in registers as it filters.
+* ``reg_dist_filter``: plain on the CPU, the kernel on a CUDA device.
 """
 
 import torch
@@ -53,47 +59,66 @@ def reg_scale_filter_plain(dist, flow, wx, bx, wy, by, k):
     return torch.stack([accx * inv, accy * inv], dim=-1).to(flow.dtype)
 
 
-def reg_scale_filter_cuda(dist, flow, wx, bx, wy, by, k):
-    """Launch ``csrc/regfilter.cu``; same semantics as the plain version.
+def reg_dist_filter_plain(raw, flow, wx, bx, wy, by, k):
+    """Normalise the raw ``moduleDist`` output [N,H,W,k²] to
+    ``exp(-(raw²) - max(-(raw²)))`` in its dtype, then filter the flow with
+    it (:func:`reg_scale_filter_plain`)."""
+    dist = -(raw**2)
+    dist = torch.exp(dist - torch.amax(dist, dim=-1, keepdim=True))
+    return reg_scale_filter_plain(dist, flow, wx, bx, wy, by, k)
 
-    Takes CUDA ``dist`` [N,H,W,k²] and ``flow`` [N,H,W,2] of one dtype
-    (float32 or bfloat16) and k in {3, 5, 7}; raises for anything else.
+
+def reg_dist_filter_cuda(raw, flow, wx, bx, wy, by, k):
+    """Launch ``csrc/regfilter.cu``; same semantics as
+    :func:`reg_dist_filter_plain`.
+
+    Takes CUDA ``raw`` [N,H,W,k²] and ``flow`` [N,H,W,2] of one dtype
+    (float32 or bfloat16) in NHWC-contiguous memory, k in {3, 5, 7}, and the
+    four parameter tensors as they are (contiguous, one dtype, float32 or
+    bfloat16, read in place). Raises ValueError for anything else, before
+    the device is looked at.
     """
-    cuda_lib.require_cuda("reg_scale_filter", dist, flow, wx, bx, wy, by)
-    n, h, w, kk = dist.shape
-    if k not in (3, 5, 7) or kk != k * k:
-        raise ValueError(f"reg_scale_filter: k must be 3, 5 or 7 with k² taps, "
-                         f"got k={k}, dist {tuple(dist.shape)}")
-    if tuple(flow.shape) != (n, h, w, 2) or flow.dtype != dist.dtype:
+    if raw.dim() != 4 or k not in (3, 5, 7) or raw.shape[3] != k * k:
+        raise ValueError(f"reg_dist_filter: k must be 3, 5 or 7 and raw [N,H,W,k²] must "
+                         f"have k² taps, got k={k}, raw {tuple(raw.shape)}")
+    n, h, w, kk = raw.shape
+    if tuple(flow.shape) != (n, h, w, 2) or flow.dtype != raw.dtype:
         raise ValueError(
-            f"reg_scale_filter: flow {tuple(flow.shape)} {flow.dtype} does not "
-            f"match dist {tuple(dist.shape)} {dist.dtype}"
+            f"reg_dist_filter: flow {tuple(flow.shape)} {flow.dtype} does not "
+            f"match raw {tuple(raw.shape)} {raw.dtype}"
         )
+    for name, t in (("raw", raw), ("flow", flow)):
+        if not t.is_contiguous():
+            raise ValueError(f"reg_dist_filter: {name} must be NHWC-contiguous memory, "
+                             f"got strides {t.stride()}")
+    params = (wx, bx, wy, by)
     if wx.numel() != kk or wy.numel() != kk or bx.numel() != 1 or by.numel() != 1:
-        raise ValueError("reg_scale_filter: weights must hold k² values, biases 1")
-    dist = dist.contiguous()
-    flow = flow.contiguous()
-    wts = torch.cat(
-        [wx.reshape(kk), wy.reshape(kk), bx.reshape(1), by.reshape(1)]
-    ).float().contiguous()
-    out = torch.empty_like(flow)
+        raise ValueError("reg_dist_filter: weights must hold k² values, biases 1")
+    if len({t.dtype for t in params}) != 1 or not all(t.is_contiguous() for t in params):
+        raise ValueError("reg_dist_filter: weights and biases must be contiguous and "
+                         "of one dtype")
+    cuda_lib.require_cuda("reg_dist_filter", raw, flow, wx, bx, wy, by)
+    out = torch.empty((n, h, w, 2), dtype=flow.dtype, device=flow.device)
     if out.numel() == 0:
         return out
-    rc = cuda_lib.load().dfvo_regfilter(
-        dist.data_ptr(), flow.data_ptr(), wts.data_ptr(), out.data_ptr(),
-        n, h, w, k, cuda_lib.dtype_code(dist.dtype), cuda_lib.stream_of(dist),
+    rc = cuda_lib.load().dfvo_reg_dist_filter(
+        raw.data_ptr(), flow.data_ptr(), wx.data_ptr(), bx.data_ptr(),
+        wy.data_ptr(), by.data_ptr(), cuda_lib.dtype_code(wx.dtype), out.data_ptr(),
+        n, h, w, k, cuda_lib.dtype_code(raw.dtype), cuda_lib.stream_of(raw),
     )
-    cuda_lib.check(rc, "reg_scale_filter")
-    reg_scale_filter_cuda.launches += 1
+    cuda_lib.check(rc, "reg_dist_filter")
+    reg_dist_filter_cuda.launches += 1
+    reg_dist_filter_cuda.variant_launches["async_tile"] += 1
     return out
 
 
-reg_scale_filter_cuda.launches = 0
+reg_dist_filter_cuda.launches = 0
+reg_dist_filter_cuda.variant_launches = {"async_tile": 0}
 
 
-def reg_scale_filter(dist, flow, wx, bx, wy, by, k):
-    """Confidence-weighted k x k flow filtering: plain on the CPU, the CUDA
-    kernel on a CUDA device."""
-    if dist.device.type == "cpu":
-        return reg_scale_filter_plain(dist, flow, wx, bx, wy, by, k)
-    return reg_scale_filter_cuda(dist, flow, wx, bx, wy, by, k)
+def reg_dist_filter(raw, flow, wx, bx, wy, by, k):
+    """Normalise the raw confidence and filter the flow with it: plain on
+    the CPU, the CUDA kernel on a CUDA device."""
+    if raw.device.type == "cpu":
+        return reg_dist_filter_plain(raw, flow, wx, bx, wy, by, k)
+    return reg_dist_filter_cuda(raw, flow, wx, bx, wy, by, k)

@@ -79,7 +79,7 @@ def _regfilter_inputs(seed, n, h, w, k):
 @pytest.mark.parametrize("k", [3, 5, 7])
 def test_reg_scale_filter_plain_matches_xla(k):
     args = _regfilter_inputs(k, 2, 12, 40, k)
-    got = T_reg.reg_scale_filter(*map(_t, args), k)
+    got = T_reg.reg_scale_filter_plain(*map(_t, args), k)
     want = J_reg._unfold_mul_xla(*map(jnp.asarray, args), k)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
@@ -126,14 +126,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         T_pcorr.correlation_cuda(x, x)
     with pytest.raises(ValueError, match="CUDA"):
-        T_reg.reg_scale_filter_cuda(
+        T_reg.reg_dist_filter_cuda(
             torch.zeros(1, 4, 4, 9), torch.zeros(1, 4, 4, 2),
             torch.zeros(9), torch.zeros(1), torch.zeros(9), torch.zeros(1), 3,
         )
     with pytest.raises(ValueError, match="CUDA"):
         T_head.head_conv_cuda(x, torch.zeros(3, 3, 8, 2))
     assert T_pcorr.correlation_cuda.launches == 0
-    assert T_reg.reg_scale_filter_cuda.launches == 0
+    assert T_reg.reg_dist_filter_cuda.launches == 0
     assert T_head.head_conv_cuda.launches == 0
 
 
