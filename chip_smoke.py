@@ -33,12 +33,27 @@ seconds, none caught:
    `infer_chunk` call (torch.profiler), written next to the report as
    profile_infer.txt and profile_infer_chunk.txt; no pow, neg, amax, sub or
    exp may run on a [N,H,W,k²] confidence tensor (the kernel normalises it).
+8. track: `tracking_step` at 192x640 on the scenes of tests/test_pipeline.py
+   (E success, planar -> PnP, constant motion) and the scale spike of
+   tests/test_tracking_options.py, built with the port's geometry on
+   smooth oracle depth fields, held to the JAX tests' pose bounds and to
+   the same step on the CPU; the RANSAC hash draws on the card equal to
+   the CPU's bit for bit. TF32 is on around the step (highp turns it off).
+9. frame: `TrackingConfig.from_cfg` of the YAML, `depth_only` on frame 0
+   and 8 chained `frame_step`s (bf16, the kernels), poses chained with
+   `update_global_pose`; the launch counters must show 5 / 5 / 14 per
+   network call.
+10. tracking: CUDA-event medians of `tracking_step` (E and planar scenes)
+   and of `frame_step`, host syncs per `tracking_step` (one: the PnP
+   decision), and torch.profiler kernels, busy share and top device ops of
+   each (profile_tracking_step_*.txt, profile_frame_step.txt).
 
 Weights and inputs are drawn from SEED.
 
-It ends with a JSON line of the kernels, the nvidia-smi line, and the result
-line {"ok": true, "device": {...}}. It exits non-zero, printing no result,
-when no CUDA device is available or any phase fails.
+It ends with a JSON line of the tracking numbers, a JSON line of the
+kernels, the nvidia-smi line, and the result line
+{"ok": true, "device": {...}}. It exits non-zero, printing no result, when
+no CUDA device is available or any phase fails.
 """
 
 import argparse
@@ -77,6 +92,11 @@ SEED = 0
 INFER_PAIRS = 8
 CHUNK_FRAMES = 33
 PER_CALL = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 14}
+# the depth network alone (depth_only): its four disparity heads
+DEPTH_ONLY_CALL = {"correlation": 0, "reg_dist_filter": 0, "head_conv": 4}
+FRAME_STEPS = 8
+# the tracking scenes' intrinsics (tests/test_pipeline.py)
+TRACK_K = np.array([[370.0, 0, 320.0], [0, 371.0, 96.0], [0, 0, 1.0]], np.float32)
 # the variant each kernel's bf16 main-path launches must take
 MAIN_VARIANT = {"correlation": "tensor_core", "reg_dist_filter": "async_tile",
                 "head_conv": "tensor_core"}
@@ -329,6 +349,15 @@ def launch_counts():
             "head_conv": head_conv_cuda}
 
 
+def reset_launch_counts():
+    counters = launch_counts()
+    for fn in counters.values():
+        fn.launches = 0
+        for v in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[v] = 0
+    return counters
+
+
 def check_finite(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         fail(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
@@ -360,11 +389,7 @@ def slice_phase(seed):
     imgs = frames.float() / 255.0  # as the JAX frame loop scales uint8 frames
     print(f"  {h}x{w} {fe.dtype}, frames {tuple(frames.shape)}")
 
-    counters = launch_counts()
-    for fn in counters.values():
-        fn.launches = 0
-        for v in getattr(fn, "variant_launches", {}):
-            fn.variant_launches[v] = 0
+    counters = reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs, kps = [], []
@@ -744,6 +769,327 @@ def profile_phase(fe, variables, imgs, out_dir):
     return result
 
 
+def track_tcfg():
+    """tests/test_pipeline.py's TCFG: the YAML defaults at 192x640, with the
+    whole image kept for depth (the scenes are synthetic)."""
+    from dfvo_torch.pipeline.tracking import TrackingConfig
+
+    return TrackingConfig(height=192, width=640, depth_crop=((0.0, 1.0), (0.0, 1.0)),
+                          max_depth=50.0)
+
+
+def gt_motion(scale):
+    """(T_cur2ref, T_ref2cur) of tests/test_pipeline.py: a small rotation
+    and a translation of norm ``scale``."""
+    from dfvo_torch.geometry.lie import so3_exp
+
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = so3_exp(torch.tensor([0.005, -0.01, 0.002])).numpy()
+    t = np.array([0.1, -0.05, 0.98])
+    T[:3, 3] = t / np.linalg.norm(t) * scale
+    return T, np.linalg.inv(T).astype(np.float32)
+
+
+def synthesize(depth_ref, T_ref2cur):
+    """Exact rigid flow ref -> cur of a depth map, and the current view's
+    depth scattered at the projected pixels (the port's geometry, on the
+    CPU)."""
+    from dfvo_torch.geometry.ops import backproject_depth, project_points
+
+    h, w = depth_ref.shape
+    K_inv = np.linalg.inv(TRACK_K).astype(np.float32)
+    pts_ref = backproject_depth(torch.from_numpy(depth_ref)[None], torch.from_numpy(K_inv))
+    pts_cur = torch.einsum("ij,nhwj->nhwi", torch.from_numpy(T_ref2cur), pts_ref)
+    pix = project_points(pts_cur, torch.from_numpy(TRACK_K))[0].numpy()
+    flow = pix - np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    z = pts_cur[0, ..., 2].numpy()
+    px = np.floor(pix[..., 0]).astype(int)
+    py = np.floor(pix[..., 1]).astype(int)
+    ok = (px >= 0) & (px < w) & (py >= 0) & (py < h) & (z > 0)
+    depth_cur = np.zeros((h, w), np.float32)
+    depth_cur[py[ok], px[ok]] = z[ok]
+    return flow.astype(np.float32), depth_cur
+
+
+def track_scenes(h=192, w=640):
+    """The scenes of tests/test_pipeline.py (E success, planar -> PnP,
+    constant motion) and the spike case of tests/test_tracking_options.py,
+    on smooth oracle depth fields: name -> (inputs, T_cur2ref or None)."""
+    from dfvo_torch.synth.oracle import smooth_field
+
+    zeros = np.zeros((h, w), np.float32)
+    eye = np.eye(4, dtype=np.float32)
+
+    def depth(seed):
+        return smooth_field(np.random.RandomState(seed), h, w, lo=5.0, hi=40.0).astype(np.float32)
+
+    scenes = {}
+    for name, seed, scale, prev_scale in (("essential", 0, 1.5, 1.0), ("planar", None, 0.8, 1.0),
+                                          ("spike", 3, 1.5, 0.1)):
+        d_ref = np.full((h, w), 15.0, np.float32) if seed is None else depth(seed)
+        T_gt, T_r2c = gt_motion(scale)
+        flow, d_cur = synthesize(d_ref, T_r2c)
+        scenes[name] = ((flow, zeros, d_cur, d_ref, eye, prev_scale), T_gt)
+    rng = np.random.RandomState(1)
+    d_ref = depth(2)
+    prev = eye.copy()
+    prev[2, 3] = 0.7
+    flow = rng.randn(h, w, 2).astype(np.float32)
+    scenes["const"] = ((flow, np.ones((h, w), np.float32), d_ref, d_ref, prev, 1.0), None)
+    return scenes
+
+
+def track_call(inputs, device, tcfg, key=None):
+    """A closure running tracking_step on ``inputs`` moved to ``device``."""
+    from dfvo_torch.pipeline.tracking import tracking_step
+    from dfvo_torch.utils import prng
+
+    flow, fd, dc, dr, prev, ps = inputs
+    args = [torch.from_numpy(a).to(device) for a in (flow, fd, dc, dr, prev)]
+    K = torch.from_numpy(TRACK_K).to(device)
+    K_inv = torch.from_numpy(np.linalg.inv(TRACK_K).astype(np.float32)).to(device)
+    key = prng.PRNGKey(0) if key is None else key
+    return lambda: tracking_step(key, *args, K, K_inv, tcfg, prev_scale=ps)
+
+
+def rot_deg(Ra, Rb):
+    """Angle of Ra^T Rb in degrees (atan2 form, exact near zero)."""
+    M = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    v = np.array([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
+    return float(np.degrees(np.arctan2(np.linalg.norm(v) / 2, (np.trace(M) - 1) / 2)))
+
+
+# mode per scene; pose bounds of the JAX tests (tests/test_pipeline.py,
+# tests/test_tracking_options.py)
+TRACK_MODES = {"essential": 1, "planar": 2, "const": 0, "spike": 2}
+
+
+def check_track_bounds(name, out, inputs, T_gt):
+    P = out["pose"].astype(np.float64)
+    mode, scale = int(out["mode"]), float(out["scale"])
+    if mode != TRACK_MODES[name]:
+        fail(f"track {name}: mode {mode}, expected {TRACK_MODES[name]}")
+    if T_gt is None:
+        if not np.allclose(P, inputs[4], atol=1e-6):
+            fail(f"track {name}: pose is not the previous motion")
+        return {}
+    ang = rot_deg(P[:3, :3], T_gt[:3, :3])
+    terr = float(np.linalg.norm(P[:3, 3] - T_gt[:3, 3]))
+    tnorm = float(np.linalg.norm(P[:3, 3]))
+    bounds = {"essential": ang < 0.1 and abs(tnorm - 1.5) / 1.5 < 0.05 and terr < 0.15,
+              "planar": ang < 0.1 and terr < 0.1,
+              "spike": scale == -1.0 and terr < 0.1}
+    if not bounds[name]:
+        fail(f"track {name}: rotation {ang:.4f} deg, |t| {tnorm:.4f}, t error {terr:.4f}, "
+             f"scale {scale} outside the JAX tests' bounds")
+    return {"rot_err_deg": ang, "t_err": terr, "t_norm": tnorm}
+
+
+def compare_track(name, got, want):
+    """The card's tracking_step against the CPU's, with the CPU parity
+    tests' tolerances (tests/test_torch_tracking.py)."""
+    if int(got["mode"]) != int(want["mode"]):
+        fail(f"track {name}: card mode {int(got['mode'])} != CPU mode {int(want['mode'])}")
+    if not np.array_equal(got["kp_ref"], want["kp_ref"]):
+        fail(f"track {name}: card keypoints differ from the CPU's")
+    P, Q = got["pose"].astype(np.float64), want["pose"].astype(np.float64)
+    ang = rot_deg(P[:3, :3], Q[:3, :3])
+    dt = float(np.linalg.norm(P[:3, 3] - Q[:3, 3]))
+    s, sq = float(got["scale"]), float(want["scale"])
+    valid = want["kp_valid"]
+    agree = float((got["inliers"] == want["inliers"])[valid].mean()) if valid.any() else 1.0
+    if not (ang < 0.01 and dt <= 1e-3 * np.linalg.norm(Q[:3, 3]) and abs(s - sq) <= 1e-3 * abs(sq)
+            and agree >= 0.995):
+        fail(f"track {name}: card vs CPU rotation {ang:.2e} deg, translation {dt:.2e}, "
+             f"scale {s} vs {sq}, inliers agree {agree:.4f}")
+    return {"rot_deg": ang, "t": dt, "scale_rel": abs(s - sq) / abs(sq), "inliers_agree": agree}
+
+
+def to_numpy(out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+@phase("track")
+def track_phase():
+    """tracking_step on the four scenes at 192x640 on the card, held to the
+    JAX tests' bounds and to the same step on the CPU; the RANSAC hash
+    draws on the card against the CPU's bit for bit. TF32 is switched on for
+    matmuls around the step: highp must switch it off inside."""
+    from dfvo_torch.solvers.ransac import _hash_draw, sample_points
+    from dfvo_torch.utils import prng
+
+    tcfg = track_tcfg()
+    scenes = track_scenes()
+    results = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for name, (inputs, T_gt) in scenes.items():
+            got = to_numpy(track_call(inputs, "cuda", tcfg)())
+            if torch.backends.cuda.matmul.allow_tf32 is not True:
+                fail("highp did not restore the caller's matmul precision")
+            want = to_numpy(track_call(inputs, "cpu", tcfg)())
+            res = check_track_bounds(name, got, inputs, T_gt)
+            res.update(mode=int(got["mode"]), scale=float(got["scale"]),
+                       card_vs_cpu=compare_track(name, got, want))
+            results[name] = res
+            print(f"  {name:9s} mode {res['mode']} scale {res['scale']:.4f} "
+                  + " ".join(f"{k} {v:.4g}" for k, v in res.items()
+                             if k in ("rot_err_deg", "t_err", "t_norm"))
+                  + f"; card vs CPU {({k: f'{v:.2e}' for k, v in res['card_vs_cpu'].items()})}",
+                  flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    rng = np.random.RandomState(SEED)
+    for i, n in enumerate((1, 37, 1999, 2000, 100000)):
+        key = prng.fold_in(prng.PRNGKey(4869), i)
+        mask = rng.rand(n) > 0.3
+        count = torch.tensor(max(int(mask.sum()), 1))
+        cpu = _hash_draw(key, 10240, count, "cpu")
+        gpu = _hash_draw(key, 10240, count.cuda(), "cuda").cpu()
+        pts = torch.from_numpy(rng.randn(n, 5).astype(np.float32))
+        m = torch.from_numpy(mask)
+        same = torch.equal(cpu, gpu) and torch.equal(
+            sample_points(key, pts, m, 1280, 8),
+            sample_points(key, pts.cuda(), m.cuda(), 1280, 8).cpu())
+        if not same:
+            fail(f"hash draws or sampled points on the card differ from the CPU's (n={n})")
+    print("  _hash_draw and sample_points: card equal to CPU bit for bit (5 keys, n up to 100000)")
+    return scenes, results
+
+
+@phase("frame")
+def frame_phase(fe, variables, seed):
+    """depth_only on frame 0, then FRAME_STEPS chained frame_steps of the
+    default configuration (bf16, the kernels), poses chained on the host."""
+    from dfvo_torch.geometry.camera import SE3
+    from dfvo_torch.pipeline.dfvo import depth_only, frame_step, next_prev_scale, update_global_pose
+    from dfvo_torch.pipeline.tracking import TrackingConfig
+    from dfvo_torch.utils import prng
+
+    cfg = load_cfg()  # the YAML as it is
+    tcfg = TrackingConfig.from_cfg(cfg)
+    h, w = cfg.image.height, cfg.image.width
+    frames = torch.from_numpy(make_frames(seed, CHUNK_FRAMES, h, w)[:FRAME_STEPS + 1]).cuda()
+    K = torch.from_numpy(TRACK_K).cuda()
+    K_inv = torch.from_numpy(np.linalg.inv(TRACK_K).astype(np.float32)).cuda()
+    print(f"  TrackingConfig.from_cfg(default YAML): {tcfg.tracking_method}, {tcfg.kp_method} "
+          f"{tcfg.num_kp}, {tcfg.e_repeat} x {tcfg.num_hypotheses} E hypotheses, "
+          f"{tcfg.scale_max_trials} scale trials, {tcfg.pnp_repeat} x {tcfg.pnp_iter} PnP, "
+          f"guard {tcfg.scale_jump_guard}")
+
+    counters = reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    depth = depth_only(fe, variables, frames[0])
+    prev_motion = torch.eye(4, device="cuda")
+    prev_scale = torch.ones((), device="cuda")
+    poses, modes, last = [SE3()], [], None
+    for i in range(1, FRAME_STEPS + 1):
+        out = frame_step(fe, tcfg, variables, frames[i], frames[i - 1], depth, prev_motion,
+                         prng.fold_in(prng.PRNGKey(cfg.seed), i), K, K_inv, prev_scale)
+        rel = SE3(out["pose"].double().cpu().numpy())
+        poses.append(update_global_pose(poses[-1], rel))
+        modes.append(int(out["mode"]))
+        prev_motion, depth = out["pose"], out["depth_cur_raw"]
+        prev_scale = next_prev_scale(out["scale"], prev_scale)
+        last = (frames[i], frames[i - 1], out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    expected = {k: FRAME_STEPS * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    if not all(np.isfinite(p.pose).all() for p in poses):
+        fail("frame: a chained pose is not finite")
+    check_finite("depth_cur_raw", last[2]["depth_cur_raw"], (h, w))
+    print(f"  depth_only + {FRAME_STEPS} frame_step in {wall:.2f} s (first calls included); "
+          f"modes {modes}; final position {np.round(poses[-1].t[:, 0], 6).tolist()}")
+    print(f"  launches {launches}, expected {expected} ({PER_CALL} per network call, "
+          f"{DEPTH_ONLY_CALL} in depth_only)")
+    if launches != expected:
+        fail(f"frame launch counts {launches} != {expected}")
+    return {"tcfg": tcfg, "K": K, "K_inv": K_inv, "last": last, "modes": modes,
+            "launches": launches, "seed": cfg.seed}
+
+
+def count_syncs(fn):
+    """Host synchronisations in one call of ``fn`` (CUDA sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def profile_call(fn, label, out_dir):
+    """Kernels, device busy share and top device ops of one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows)
+    kernels = sum(r[1] for r in rows)
+    with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
+        f.write(f"{label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+                f"{kernels} kernels\n")
+        for key, count, ms in rows:
+            f.write(f"{ms:10.4f} ms {count:6d}x  {key}\n")
+    print(f"  {label}: wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} %), {kernels} kernels")
+    for key, count, ms in rows[:6]:
+        print(f"    {ms:8.3f} ms {count:5d}x  {key[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "kernels": kernels, "top": [[k, c, ms] for k, c, ms in rows[:10]]}
+
+
+@phase("tracking")
+def tracking_phase(fe, variables, scenes, frame, out_dir):
+    """CUDA-event medians of tracking_step (E and planar scenes) and of
+    frame_step, host syncs per tracking_step, and profiles of one
+    tracking_step per scene and of one frame_step."""
+    from dfvo_torch.pipeline.dfvo import frame_step
+    from dfvo_torch.utils import prng
+
+    tcfg = track_tcfg()
+    calls = {name: track_call(scenes[name][0], "cuda", tcfg) for name in ("essential", "planar")}
+    cur, ref, out = frame["last"]
+    key = prng.fold_in(prng.PRNGKey(frame["seed"]), FRAME_STEPS)
+
+    def one_frame():
+        return frame_step(fe, frame["tcfg"], variables, cur, ref, out["depth_cur_raw"],
+                          out["pose"], key, frame["K"], frame["K_inv"], 1.0)
+
+    result = {"tracking_step": {}}
+    for name, fn in calls.items():
+        syncs = count_syncs(fn)
+        if syncs != 1:
+            fail(f"tracking_step ({name}): {syncs} host syncs, expected 1 (the PnP decision)")
+        ms = time_cuda(fn, reps=5, rounds=3)
+        prof = profile_call(fn, f"tracking_step_{name}", out_dir)
+        result["tracking_step"][name] = {"ms": ms, "host_syncs": syncs, **prof}
+        print(f"  tracking_step {name}: {ms:.3f} ms (CUDA events, median), {syncs} host sync",
+              flush=True)
+    frame_ms = time_cuda(one_frame, reps=3, rounds=3)
+    result["frame_step"] = {"ms_per_frame": frame_ms, "modes": frame["modes"],
+                            **profile_call(one_frame, "frame_step", out_dir)}
+    print(f"  frame_step: {frame_ms:.3f} ms/frame (CUDA events, median; bfloat16, 192x640)")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke", "chip_smoke.json"))
@@ -762,10 +1108,13 @@ def main():
     kernels_phase(chk)
     fe, variables, imgs, launches = slice_phase(SEED)
     parity = parity_phase(SEED, imgs)
+    scenes, track = track_phase()
+    frame = frame_phase(fe, variables, SEED)
     infer_ms, chunk_ms, rows, sums = times_phase(chk, fe, variables, imgs)
     out_dir = os.path.dirname(os.path.abspath(args.out))
     os.makedirs(out_dir, exist_ok=True)
     profile = profile_phase(fe, variables, imgs, out_dir)
+    tracking = tracking_phase(fe, variables, scenes, frame, out_dir)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -791,11 +1140,26 @@ def main():
         "kernel_rows": rows, "per_call": sums, "ptxas": ptxas,
         "max_abs_err_f32": chk.max_abs_err_f32,
         "parity": parity, "kernels": kernels, "profile": profile,
+        "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
+        "tracking": tracking,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(f"total {report['seconds']:.1f} s; report in {os.path.relpath(args.out, ROOT)}")
+    print(json.dumps({"tracking": {
+        "tracking_step_ms": {k: v["ms"] for k, v in tracking["tracking_step"].items()},
+        "tracking_step_kernels": {k: v["kernels"] for k, v in tracking["tracking_step"].items()},
+        "tracking_step_busy_share": {k: v["busy_share"]
+                                     for k, v in tracking["tracking_step"].items()},
+        "host_syncs_per_tracking_step": {k: v["host_syncs"]
+                                         for k, v in tracking["tracking_step"].items()},
+        "frame_step_ms_per_frame": tracking["frame_step"]["ms_per_frame"],
+        "frame_step_kernels": tracking["frame_step"]["kernels"],
+        "frame_step_busy_share": tracking["frame_step"]["busy_share"],
+        "frame_modes": frame["modes"],
+        "track": {k: {kk: vv for kk, vv in v.items() if kk != "card_vs_cpu"}
+                  for k, v in track.items()}}}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

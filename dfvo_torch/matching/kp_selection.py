@@ -104,13 +104,14 @@ def _select_best_per_cell(score_cells, valid_cells, k):
     scores = torch.where(
         valid_cells, score_cells, torch.full_like(score_cells, math.inf)
     )
-    rows = torch.arange(scores.shape[0], device=scores.device)
     idx, val = [], []
     for _ in range(k):
-        j = torch.argmin(scores, dim=1)
-        val.append(scores[rows, j])
-        scores[rows, j] = math.inf
-        idx.append(j)
+        j = torch.argmin(scores, dim=1, keepdim=True)
+        val.append(torch.gather(scores, 1, j)[:, 0])
+        # scatter_ takes the value as a kernel argument; an indexed
+        # assignment would copy it to the card and synchronise
+        scores.scatter_(1, j, math.inf)
+        idx.append(j[:, 0])
     return torch.stack(idx, dim=1), torch.isfinite(torch.stack(val, dim=1))
 
 

@@ -1,1 +1,2 @@
-"""Pipeline stages of the port (the network frontend so far)."""
+"""Pipeline stages of the port: the network frontend, the tracking step
+and the per-frame step."""

@@ -190,3 +190,59 @@ def test_cell_table_matches_jax():
         T_kp.cell_index_table(192, 640, 10, 10),
         J_kp.cell_index_table(192, 640, 10, 10),
     )
+
+
+def test_frame_steps_match_jax(slice_pair):
+    """The slice as a whole: three chained frame steps (uint8 frames ->
+    ``infer`` -> ``tracking_step``, prev_motion and prev_scale carried) of
+    the port's ``pipeline/dfvo.py`` against the JAX frontend and tracking
+    step on the same frames and keys. The JAX tracking program is
+    tests/test_scan_runner.py's (64x96, 32 hypotheses, float32). Random
+    weights give flows of ~0.02 px, so the frames track by PnP; poses within
+    1e-5, the same modes, keypoints and scales."""
+    from dfvo_torch.pipeline import dfvo as T_dfvo
+    from dfvo_torch.pipeline import tracking as T_tr
+    from dfvo_torch.utils import prng
+    from dfvo_tpu.pipeline import tracking as J_tr
+
+    jfe, jvars, tfe, tvars, imgs = slice_pair
+    frames = (imgs * 255).astype(np.uint8)
+    jcfg, tcfg = _cfg(ConfigLoader), _cfg(TConfigLoader)
+    jcfg.tpu.ransac_hypotheses = tcfg.tpu.ransac_hypotheses = 32
+    jt, tt = J_tr.TrackingConfig.from_cfg(jcfg), T_tr.TrackingConfig.from_cfg(tcfg)
+    K = np.array([[55.0, 0, 48.0], [0, 123.0, 32.0], [0, 0, 1.0]], np.float32)
+    K_inv = np.linalg.inv(K).astype(np.float32)
+    jinfer = jax.jit(jfe.infer)
+
+    def unit(i):
+        return jnp.asarray(frames[i]).astype(jnp.float32) / 255.0
+
+    # frame 0's depth, through the already built infer program (JAX) and
+    # the port's depth_only
+    j_depth = jinfer(jvars, unit(0), unit(1))["depth_cur"]
+    t_depth = T_dfvo.depth_only(tfe, tvars, torch.from_numpy(frames[0]))
+    np.testing.assert_allclose(t_depth.numpy(), np.asarray(j_depth), rtol=1e-4)
+    j_motion, t_motion = jnp.eye(4, dtype=jnp.float32), torch.eye(4)
+    j_scale, t_scale = jnp.asarray(1.0, jnp.float32), torch.tensor(1.0)
+    modes = []
+    for i in range(1, 4):
+        fo = jinfer(jvars, unit(i), unit(i - 1))
+        want = J_tr.tracking_step(
+            jax.random.fold_in(jax.random.PRNGKey(0), i), fo["flow_fwd"], fo["flow_diff"],
+            fo["depth_cur"], j_depth, j_motion, jnp.asarray(K), jnp.asarray(K_inv), jt,
+            prev_scale=j_scale)
+        got = T_dfvo.frame_step(
+            tfe, tt, tvars, torch.from_numpy(frames[i]), torch.from_numpy(frames[i - 1]),
+            t_depth, t_motion, prng.fold_in(prng.PRNGKey(0), i), torch.from_numpy(K),
+            torch.from_numpy(K_inv), t_scale)
+        assert int(got["mode"]) == int(want["mode"])
+        np.testing.assert_array_equal(got["kp_ref"].numpy(), np.asarray(want["kp_ref"]))
+        np.testing.assert_array_equal(got["kp_valid"].numpy(), np.asarray(want["kp_valid"]))
+        np.testing.assert_allclose(got["pose"].numpy(), np.asarray(want["pose"]), atol=1e-5)
+        np.testing.assert_allclose(float(got["scale"]), float(want["scale"]), rtol=1e-3)
+        modes.append(int(got["mode"]))
+        j_depth, t_depth = fo["depth_cur"], got["depth_cur_raw"]
+        j_motion, t_motion = want["pose"], got["pose"]
+        j_scale = jnp.where(want["scale"] > 0, want["scale"], j_scale)
+        t_scale = T_dfvo.next_prev_scale(got["scale"], t_scale)
+    assert modes == [T_tr.TRACK_MODE_PNP] * 3
