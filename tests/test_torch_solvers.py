@@ -7,8 +7,9 @@ Tolerances:
 * small linear algebra and closed forms: rtol 1e-5, atol 1e-6 (1e-4 where
   an iteration amplifies rounding, stated at the test);
 * RANSAC estimators: the same validity flag, rotation within 0.01 deg,
-  translation within 1e-3 |t|, inlier masks equal on at least 99.5 % of
-  the valid points.
+  translation within 1e-3 |t| (5e-3 |t| for compute_pose_3d2d, whose
+  reason is at the test), inlier masks equal on at least 99.5 % of the
+  valid points.
 
 The JAX solver calls use the shapes and static arguments of
 tests/test_solvers.py and tests/test_tracker.py, so they build the same
@@ -192,16 +193,17 @@ def _near_essentials(rng, b):
 def test_essential_frames_and_decomposition():
     E = _near_essentials(np.random.RandomState(4), 16)
     U, V, s = T_lin.essential_uv_closed(t(E))
-    Uj, Vj, sj = jax.vmap(J_lin.essential_uv_closed)(jnp.asarray(E))
+    Uj, Vj, sj = jax.jit(jax.vmap(J_lin.essential_uv_closed))(jnp.asarray(E))
     # sigma1 = sigma2 for a true essential: the in-plane frame is
     # ill-conditioned, so compare what callers use, the projection and the
     # four decompositions, and the frames' third columns
     close(s, sj, rtol=1e-4, atol=1e-5)
     close(U[..., 2].abs(), np.abs(np.asarray(Uj)[..., 2]), rtol=1e-3, atol=1e-4)
     close(T_ess._project_to_essential(t(E)),
-          jax.vmap(J_ess._project_to_essential)(jnp.asarray(E)), rtol=1e-3, atol=1e-4)
+          jax.jit(jax.vmap(J_ess._project_to_essential))(jnp.asarray(E)),
+          rtol=1e-3, atol=1e-4)
     Rs, ts = T_ess.decompose_essential(t(E))
-    Rsj, tsj = jax.vmap(J_ess.decompose_essential)(jnp.asarray(E))
+    Rsj, tsj = jax.jit(jax.vmap(J_ess.decompose_essential))(jnp.asarray(E))
     close(Rs, Rsj, rtol=1e-3, atol=1e-4)
     close(ts, tsj, rtol=1e-3, atol=1e-4)
 
@@ -312,7 +314,7 @@ def test_solve_quartic():
         coefs.append(np.poly(true))
     c = np.asarray(coefs, np.float32).T
     roots, valid = T_p3p.solve_quartic(*[t(x) for x in c])
-    roots_j, valid_j = jax.vmap(J_p3p.solve_quartic)(*[jnp.asarray(x) for x in c])
+    roots_j, valid_j = jax.jit(jax.vmap(J_p3p.solve_quartic))(*[jnp.asarray(x) for x in c])
     np.testing.assert_array_equal(valid.numpy(), np.asarray(valid_j))
     close(roots, roots_j, rtol=1e-4, atol=1e-4)
 
@@ -361,7 +363,7 @@ def test_minimal_pose_solvers(planar):
     tf, jf = ((T_pnp.pnp_from_sample_planar, J_pnp.pnp_from_sample_planar) if planar
               else (T_pnp.pnp_from_sample, J_pnp.pnp_from_sample))
     R, tt = tf(t(X), t(xs))
-    Rj, tj = jax.vmap(jf)(jnp.asarray(X), jnp.asarray(xs))
+    Rj, tj = jax.jit(jax.vmap(jf))(jnp.asarray(X), jnp.asarray(xs))
     _assert_minimal_solver_parity(R, tt, Rj, tj, X, xs)
 
 
@@ -371,6 +373,8 @@ def test_p3p_solutions():
     X[..., 2] += 8.0
     xs = (X[..., :2] / X[..., 2:3]).astype(np.float32)
     R, tt, ok = T_p3p.p3p_solutions(t(X), t(xs))
+    # op by op: a root's validity is a discriminant's sign, which the
+    # jitted program's reordered rounding flips for near-double roots
     Rj, tj, okj = jax.vmap(J_p3p.p3p_solutions)(jnp.asarray(X), jnp.asarray(xs))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(okj))
     okn = ok.numpy()
@@ -479,25 +483,26 @@ def test_compute_pose_3d2d():
     kp_ref_px = ki.astype(np.float32)
     mask = np.ones(n, bool)
     jk, tk = keys(5)
-    # held to the JAX function run op by op: XLA's jit reorders the
-    # float32 reductions, and on this scene the jitted and op-by-op JAX runs
-    # themselves keep different ones of two near-equal RANSAC winners
-    # (644 against 646 inliers, t 2.7e-3 |t| apart); the port follows the
-    # program order
-    with jax.disable_jit():
-        want = J_pt.compute_pose_3d2d(jk, jnp.asarray(kp_ref_px), jnp.asarray(kp_cur),
-                                      jnp.asarray(mask), jnp.asarray(depth_map),
-                                      jnp.asarray(Kf), jnp.asarray(Kif), max_depth=50.0)
+    want = J_pt.compute_pose_3d2d(jk, jnp.asarray(kp_ref_px), jnp.asarray(kp_cur),
+                                  jnp.asarray(mask), jnp.asarray(depth_map), jnp.asarray(Kf),
+                                  jnp.asarray(Kif), max_depth=50.0)
     got = T_pt.compute_pose_3d2d(tk, t(kp_ref_px), t(kp_cur), torch.from_numpy(mask),
                                  t(depth_map), t(Kf), t(Kif), max_depth=50.0)
     np.testing.assert_array_equal(got["mask"].numpy(), np.asarray(want["mask"]))
+    assert bool(got["ok"]) == bool(want["ok"])
     T_got, T_want = got["T"].numpy(), np.asarray(want["T"])
-    got_rt = {"R": torch.from_numpy(T_got[:3, :3]), "t": torch.from_numpy(T_got[:3, 3]),
-              "inliers": got["inliers"], "ok": got["ok"]}
-    want_rt = {"R": T_want[:3, :3], "t": T_want[:3, 3], "inliers": want["inliers"],
-               "ok": want["ok"]}
-    assert_same_estimate(got_rt, want_rt, mask, key_ok="ok")
-    # and, like the jitted JAX run, within the JAX test's bounds of the
-    # ground truth (tests/test_tracker.py)
+    assert rot_deg(T_got[:3, :3], T_want[:3, :3]) < 0.01
+    # translation within 5e-3 |t|, not 1e-3: XLA's jit reorders float32
+    # reductions, and on this scene the jitted and the op-by-op
+    # (jax.disable_jit) runs of this JAX function keep different ones of
+    # two near-equal PnP winners, 644 against 646 inliers, their
+    # translations 2.7e-3 |t| apart. The port follows the program order
+    # and matches the op-by-op run to 3e-7 (ROADMAP queue 3).
+    tw = T_want[:3, 3].astype(np.float64)
+    assert np.linalg.norm(T_got[:3, 3] - tw) <= 5e-3 * np.linalg.norm(tw)
+    agree = got["inliers"].numpy() == np.asarray(want["inliers"])
+    assert agree[np.asarray(want["mask"])].mean() >= 0.995
+    # and within the JAX test's bounds of the ground truth
+    # (tests/test_tracker.py)
     assert rot_deg(T_got[:3, :3], R) < 0.3
     assert np.linalg.norm(T_got[:3, 3] - T[:3, 3]) < 0.1
