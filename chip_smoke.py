@@ -47,13 +47,29 @@ seconds, none caught:
    and of `frame_step`, host syncs per `tracking_step` (one: the PnP
    decision), and torch.profiler kernels, busy share and top device ops of
    each (profile_tracking_step_*.txt, profile_frame_step.txt).
+11. run: the port's CLI, ``python -m dfvo_torch.apis.run``'s ``main``, in
+   this process on the card over a synthetic KITTI-odometry sequence of
+   RUN_FRAMES 1241x376 JPEG frames (a smooth texture panning 2 px per
+   frame, calib.txt and GT poses, under build/chip_smoke/run/) with the
+   default YAML and a custom YAML that sets only the sequence and the
+   directories: 192x640, bf16, visualization on. It checks the trajectory
+   file (RUN_FRAMES finite poses), the annotated configuration.yml, the
+   port's KittiEvalOdom.eval_seq against the GT (finite ATE and RPE), the
+   launches (5 / 5 / 14 per tracked frame and 4 head convs on the first,
+   all on their Hopper variants) and the host reads of every frame (CUDA
+   sync debug mode). Then the same loop in float32 on PARITY_FRAMES frames
+   on the card and on the CPU, drawer off: equal modes, poses within 0.01
+   deg and 1e-3 of the camera's GT travel, two host reads per tracked
+   frame.
 
 Weights and inputs are drawn from SEED.
 
-It ends with a JSON line of the tracking numbers, a JSON line of the
-kernels, the nvidia-smi line, and the result line
-{"ok": true, "device": {...}}. It exits non-zero, printing no result, when
-no CUDA device is available or any phase fails.
+It ends with a JSON line of the CLI run (timer means per scope,
+frames/s, host reads per frame, the frame loader), a JSON line of the
+tracking numbers, a JSON line of the kernels (launches from the CLI run),
+the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
+It exits non-zero, printing no result, when no CUDA device is available
+or any phase fails.
 """
 
 import argparse
@@ -95,6 +111,15 @@ PER_CALL = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 14}
 # the depth network alone (depth_only): its four disparity heads
 DEPTH_ONLY_CALL = {"correlation": 0, "reg_dist_filter": 0, "head_conv": 4}
 FRAME_STEPS = 8
+RUN_FRAMES = 12
+PARITY_FRAMES = 4
+RUN_SEQ = "09"
+# KITTI odometry sequence 00's left camera (calib.txt P2), 1241x376 frames
+RUN_CALIB = "718.856 0.0 607.1928 45.38225 0.0 718.856 185.2157 -0.1130887 0.0 0.0 1.0 0.003779761"
+RUN_SIZE = (376, 1241)
+# host reads per tracked frame: the PnP decision and the pose, plus one
+# batched download for the drawer
+RUN_HOST_READS = {False: 2, True: 3}
 # the tracking scenes' intrinsics (tests/test_pipeline.py)
 TRACK_K = np.array([[370.0, 0, 320.0], [0, 371.0, 96.0], [0, 0, 1.0]], np.float32)
 # the variant each kernel's bf16 main-path launches must take
@@ -1090,6 +1115,217 @@ def tracking_phase(fe, variables, scenes, frame, out_dir):
     return result
 
 
+def write_run_sequence(root, seed):
+    """A KITTI-odometry-layout sequence of RUN_FRAMES JPEG frames (a smooth
+    texture panning 2 px per frame), its calib.txt and GT poses (the
+    camera moving 5.6 cm right per frame, a 2 px shift at 20 m)."""
+    import cv2
+
+    h, w = RUN_SIZE
+    rng = np.random.default_rng(seed)
+    span = w + 2 * RUN_FRAMES
+    coarse = rng.integers(0, 256, (h // 8, span // 8, 3)).astype(np.uint8)
+    texture = cv2.resize(coarse, (span, h), interpolation=cv2.INTER_CUBIC)
+    seq_dir = os.path.join(root, "odom_data", RUN_SEQ)
+    os.makedirs(os.path.join(seq_dir, "image_2"), exist_ok=True)
+    os.makedirs(os.path.join(root, "gt_poses"), exist_ok=True)
+    lines = []
+    for i in range(RUN_FRAMES):
+        cv2.imwrite(os.path.join(seq_dir, "image_2", f"{i:06d}.jpg"),
+                    texture[:, 2 * i : 2 * i + w])
+        P = np.eye(4)
+        P[0, 3] = 2 * 20.0 / 718.856 * i
+        lines.append(" ".join(str(v) for v in P.flatten()[:12]))
+    with open(os.path.join(root, "gt_poses", f"{RUN_SEQ}.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        f.write("".join(f"P{j}: {RUN_CALIB}\n" for j in range(4)))
+
+
+class FrameRecorder:
+    """Wraps DFVO.run_frame: host synchronisations of each frame (CUDA sync
+    debug mode; none are counted on the CPU) and each tracked frame's mode,
+    read after the frame so the read is not counted."""
+
+    def __init__(self):
+        from dfvo_torch.pipeline.dfvo import DFVO
+
+        self.cls, self.orig = DFVO, DFVO.run_frame
+        self.syncs, self.modes, self.where = [], [], {}
+        rec = self
+
+        def run_frame(vo, img_id, img=None):
+            import warnings
+
+            on_card = vo.device.type == "cuda"
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    mode = rec.orig(vo, img_id, img=img)
+                finally:
+                    if on_card:
+                        torch.cuda.set_sync_debug_mode(0)
+            found = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                     if "called a synchronizing CUDA operation" in str(w.message)]
+            rec.syncs.append(len(found))
+            for loc in found:
+                rec.where[loc] = rec.where.get(loc, 0) + 1
+            if vo.tracking_stage > 1:
+                rec.modes.append(int(vo.cur_data["vo_out"]["mode"]))
+            return mode
+
+        DFVO.run_frame = run_frame
+
+    def close(self):
+        self.cls.run_frame = self.orig
+
+
+def run_loop(cfg, device, frames):
+    """DFVO(cfg, device).main over ``frames`` frames, recorded."""
+    from dfvo_torch.pipeline.dfvo import DFVO
+
+    rec = FrameRecorder()
+    try:
+        vo = DFVO(cfg, device=device)
+        vo.main(num_frames=frames)
+    finally:
+        rec.close()
+    return vo, rec
+
+
+@phase("run")
+def run_phase(seed, smi):
+    """The CLI on the card (bf16, drawer on), then the float32 loop on the
+    card against the CPU (drawer off)."""
+    from dfvo_torch.apis import run as cli
+    from dfvo_torch.evaluation import KittiEvalOdom
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "run")
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    write_run_sequence(data, seed)
+    custom = os.path.join(root, "custom.yml")
+    with open(custom, "w") as f:
+        f.write(f'seq: "{RUN_SEQ}"\n'
+                f"directory: {{img_seq_dir: {data}/odom_data, gt_pose_dir: {data}/gt_poses, "
+                f"result_dir: {result}}}\n")
+    print(f"  {RUN_FRAMES} frames {RUN_SIZE[1]}x{RUN_SIZE[0]} jpg in {os.path.relpath(data, ROOT)}")
+
+    counters = reset_launch_counts()
+    rec = FrameRecorder()
+    try:
+        t0 = time.perf_counter()
+        vo = cli.main(["-d", CFG, "-c", custom, "--no_confirm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    variants = {k: dict(fn.variant_launches) for k, fn in counters.items()
+                if hasattr(fn, "variant_launches")}
+    cfg = vo.cfg
+    print(f"  {cfg.image.height}x{cfg.image.width} {vo.frontend.dtype}, loader {vo.loader}, "
+          f"drawer {'on' if vo.drawer is not None else 'off'}; main() in {wall:.2f} s "
+          f"(setup included)")
+
+    traj = load_poses_from_txt(os.path.join(result, f"{RUN_SEQ}.txt"))
+    if sorted(traj) != list(range(RUN_FRAMES)) or not all(np.isfinite(p).all()
+                                                        for p in traj.values()):
+        fail(f"run: {RUN_SEQ}.txt holds frames {sorted(traj)}, expected {RUN_FRAMES} finite poses")
+    with open(os.path.join(result, "configuration.yml")) as f:
+        if "|CHANGED|" not in f.read():
+            fail("run: configuration.yml has no |CHANGED| annotation")
+    gt = load_poses_from_txt(os.path.join(data, "gt_poses", f"{RUN_SEQ}.txt"))
+    ev = KittiEvalOdom().eval_seq(gt, traj, alignment="6dof")
+    if not all(np.isfinite(ev[k]) for k in ("ate", "rpe_m", "rpe_deg")):
+        fail(f"run: eval_seq gave ATE {ev['ate']}, RPE {ev['rpe_m']} m / {ev['rpe_deg']} deg")
+    tracked = RUN_FRAMES - 1
+    expected = {k: tracked * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    print(f"  launches {launches}, expected {expected} ({PER_CALL} per tracked frame, "
+          f"{DEPTH_ONLY_CALL} on the first); by variant {variants}")
+    if launches != expected:
+        fail(f"run launch counts {launches} != {expected}")
+    for k, by in variants.items():
+        if by[MAIN_VARIANT[k]] != expected[k]:
+            fail(f"run: {k} launches by variant {by}, expected all {MAIN_VARIANT[k]}")
+    reads = RUN_HOST_READS[vo.drawer is not None]
+    print(f"  host reads per frame {rec.syncs} (expected 0, then {reads}), by source line "
+          f"{rec.where}; modes {rec.modes}")
+    if rec.syncs != [0] + [reads] * tracked:
+        fail(f"run: host reads per frame {rec.syncs}, expected 0 then {reads}; "
+             f"by source line {rec.where}")
+    scopes = ("data_loading", "depth_cnn", "vo_step", "visualization", "DF-VO")
+    means = {k: 1e3 * vo.timers.get_mean(k) for k in scopes if k in vo.timers.timers}
+    frame_ms = [1e3 * t for t in vo.timers.timers["DF-VO"]["times"]]
+    step_ms = [1e3 * t for t in vo.timers.timers["vo_step"]["times"]]
+    # steady state: the tracked frames after the first two
+    steady = {k: statistics.median(1e3 * t for t in vo.timers.timers[k]["times"][-(tracked - 2):])
+              for k in ("vo_step", "visualization", "DF-VO")}
+    print("  timer means (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in means.items())
+          + f"; DF-VO per frame {[round(t, 2) for t in frame_ms]}; vo_step per tracked "
+          f"frame {[round(t, 2) for t in step_ms]}; medians of the last {tracked - 2} "
+          + ", ".join(f"{k} {v:.2f}" for k, v in steady.items()))
+    print(f"  eval_seq (6dof): ATE {ev['ate']:.4f} m, RPE {ev['rpe_m']:.4f} m / "
+          f"{ev['rpe_deg']:.4f} deg over {ev['seq_len']:.2f} m of GT")
+
+    # float32, drawer off: the card against the CPU. The seeded weights'
+    # flows (under 0.5 px, incoherent) give estimated motions of ~2e-5 m
+    # that are the remainder of cancelling terms, so float32 differences in
+    # the flows move them by a larger share; the translation is held to
+    # 1e-3 of the camera's GT travel since frame 0 and its share of the
+    # estimate is reported beside it
+    runs = {}
+    for device in ("cuda", "cpu"):
+        f32 = load_cfg("float32")
+        f32.seq = RUN_SEQ
+        f32.directory.img_seq_dir = f"{data}/odom_data"
+        f32.directory.gt_pose_dir = f"{data}/gt_poses"
+        f32.directory.result_dir = os.path.join(root, f"f32_{device}")
+        f32.visualization.enable = False
+        t0 = time.perf_counter()
+        fvo, frec = run_loop(f32, device, PARITY_FRAMES)
+        runs[device] = (fvo, frec, time.perf_counter() - t0)
+    (cvo, crec, cwall), (hvo, hrec, hwall) = runs["cuda"], runs["cpu"]
+    worst_rot = worst_t = worst_t_est = 0.0
+    for i in range(1, PARITY_FRAMES):
+        P, Q = cvo.global_poses[i].pose, hvo.global_poses[i].pose
+        ang, dt = rot_deg(P[:3, :3], Q[:3, :3]), float(np.linalg.norm(P[:3, 3] - Q[:3, 3]))
+        travel = float(np.linalg.norm(gt[i][:3, 3] - gt[0][:3, 3]))
+        worst_rot = max(worst_rot, ang)
+        worst_t = max(worst_t, dt / travel)
+        worst_t_est = max(worst_t_est, dt / max(float(np.linalg.norm(Q[:3, 3])), 1e-30))
+        if not (ang < 0.01 and dt <= 1e-3 * travel):
+            fail(f"run f32 frame {i}: card vs CPU rotation {ang:.2e} deg, translation "
+                 f"{dt:.2e} (GT travel {travel:.2e})")
+    if crec.modes != hrec.modes:
+        fail(f"run f32: card modes {crec.modes} != CPU modes {hrec.modes}")
+    if crec.syncs != [0] + [RUN_HOST_READS[False]] * (PARITY_FRAMES - 1):
+        fail(f"run f32: host reads per frame {crec.syncs}, expected 0 then "
+             f"{RUN_HOST_READS[False]}; by source line {crec.where}")
+    print(f"  float32 {PARITY_FRAMES} frames, drawer off: card {cwall:.2f} s, CPU {hwall:.2f} s; "
+          f"modes {crec.modes}; worst rotation {worst_rot:.2e} deg, translation "
+          f"{worst_t:.2e} of the GT travel ({worst_t_est:.2e} of the estimated |t|, "
+          f"{np.linalg.norm(hvo.global_poses[PARITY_FRAMES - 1].t):.2e} m at frame "
+          f"{PARITY_FRAMES - 1}); host reads per frame {crec.syncs}")
+    return {
+        "frames": RUN_FRAMES, "size": [cfg.image.height, cfg.image.width],
+        "dtype": str(vo.frontend.dtype).replace("torch.", ""), "loader": vo.loader,
+        "drawer": vo.drawer is not None,
+        "timer_mean_ms": means, "df_vo_ms_per_frame": frame_ms,
+        "frames_per_s": 1e3 / means["DF-VO"],
+        "steady_median_ms": steady, "vo_step_ms_per_frame": step_ms,
+        "host_reads_per_frame": rec.syncs, "modes": rec.modes, "launches": launches,
+        "eval_6dof": {"ate_m": ev["ate"], "rpe_m": ev["rpe_m"], "rpe_deg": ev["rpe_deg"]},
+        "f32_card_vs_cpu": {"frames": PARITY_FRAMES, "modes": crec.modes,
+                            "worst_rot_deg": worst_rot, "worst_t_of_gt_travel": worst_t,
+                            "worst_t_of_estimated_t": worst_t_est,
+                            "host_reads_per_frame": crec.syncs},
+        "nvidia_smi": smi,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke", "chip_smoke.json"))
@@ -1115,6 +1351,7 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     profile = profile_phase(fe, variables, imgs, out_dir)
     tracking = tracking_phase(fe, variables, scenes, frame, out_dir)
+    run = run_phase(SEED, smi)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -1126,7 +1363,8 @@ def main():
     # each shape; per-shape rows are in the report
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "variant": MAIN_VARIANT[name], "launches": launches[name],
+         "variant": MAIN_VARIANT[name], "launches": run["launches"][name],
+         "launches_slice": launches[name],
          "launches_per_call": sums[name]["launches_per_call"],
          "max_abs_err": chk.max_abs_err[name],
          "ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],
@@ -1141,12 +1379,16 @@ def main():
         "max_abs_err_f32": chk.max_abs_err_f32,
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
-        "tracking": tracking,
+        "tracking": tracking, "run": run,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     print(f"total {report['seconds']:.1f} s; report in {os.path.relpath(args.out, ROOT)}")
+    print(json.dumps({"run": {k: run[k] for k in (
+        "frames", "size", "dtype", "timer_mean_ms", "frames_per_s", "steady_median_ms",
+        "host_reads_per_frame", "loader", "drawer", "eval_6dof", "f32_card_vs_cpu",
+        "nvidia_smi")}}))
     print(json.dumps({"tracking": {
         "tracking_step_ms": {k: v["ms"] for k, v in tracking["tracking_step"].items()},
         "tracking_step_kernels": {k: v["kernels"] for k, v in tracking["tracking_step"].items()},

@@ -1,16 +1,39 @@
-"""The per-frame step of DF-VO: network frontend, then the tracking step.
+"""DF-VO's frame loop: the ``DFVO`` class and its per-frame step.
 
-Counterpart of the step functions of ``dfvo_tpu/pipeline/dfvo.py``: its
-``depth_only`` closure (the first frame's depth), its ``full_step``
-closure (here :func:`frame_step`: u8 images -> ``DeepFrontend.infer`` ->
-``tracking_step``), and the pose chaining of ``DFVO.update_global_pose``.
-The ``DFVO`` frame loop, datasets and result files come with the port's
-entry point.
+Counterpart of ``dfvo_tpu/pipeline/dfvo.py`` in its default frame
+execution. The step functions are its ``depth_only`` closure (the first
+frame's depth), its ``full_step`` closure (here :func:`frame_step`: uint8
+images -> ``DeepFrontend.infer`` -> ``tracking_step``) and the pose
+chaining of ``DFVO.update_global_pose``. :class:`DFVO` runs them over a
+dataset: frames decoded ahead by a prefetcher, the scale and the previous
+motion carried on the device, the global trajectory chained on the host,
+the optional drawer, and the trajectory file.
+
+Per tracked frame the loop reads the device twice: the PnP decision inside
+``tracking_step`` and the relative pose. The drawer, when it is on, adds
+one batched download of what it draws (the tracking mode included).
 """
 
+import os
+
+import numpy as np
 import torch
 
-from .tracking import tracking_step
+from ..datasets import datasets as dataset_registry
+from ..geometry.camera import SE3
+from ..utils import prng
+from ..utils.io import mkdir_if_not_exists
+from ..utils.timer import Timer
+from .frontend import DeepFrontend
+from .tracking import _ITEM5, _ITEM9, TrackingConfig, tracking_step
+
+_MODE_NAMES = {0: "Const.", 1: "Ess. Mat.", 2: "PnP", 3: "DeepPose"}
+_ITEM8 = "ROADMAP queue 1 item 8, 'Online finetuning'"
+_ITEM11 = "ROADMAP queue 1 item 11, 'Scale-out and state'"
+# the frame step's outputs that the drawer reads
+_DRAWN = ("mode", "kp_ref", "kp_cur", "kp_valid", "inliers", "depth_cur", "flow_fwd",
+          "flow_bwd", "flow_diff", "rigid_flow_diff")
+PROGRESS_EVERY = 100  # frames between progress lines
 
 
 def _to_unit_float(img_u8):
@@ -80,3 +103,226 @@ def update_global_pose(ref_pose, new_pose, scale=1.0):
 def next_prev_scale(scale, prev_scale):
     """The scale carried to the next frame: this frame's when positive."""
     return torch.where(scale > 0, scale, prev_scale)
+
+
+def _check_ported(cfg):
+    """Raise for the options of the JAX frame loop not ported yet."""
+    execution = str(cfg.tpu.get("execution", "frame"))
+    if execution not in ("frame", "scan"):
+        raise ValueError(f"tpu.execution must be 'frame' or 'scan', got {execution!r}")
+    unported = (
+        (execution == "scan", "tpu.execution: scan", _ITEM5),
+        (bool(cfg.online_finetune.enable), "online_finetune.enable", _ITEM8),
+        (bool(cfg.deep_pose.enable), "deep_pose.enable", _ITEM9),
+        (str(cfg.tracking_method) == "deep_pose", "tracking_method: deep_pose", _ITEM9),
+    )
+    for on, what, item in unported:
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def _resolve_device(device):
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("DFVO runs on a CUDA device by default and none is "
+                               "available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+class DFVO:
+    """The per-frame DF-VO loop over one sequence.
+
+    Args:
+        cfg: the merged configuration (``utils.ConfigLoader``).
+        device: torch device of the networks and the tracking step; None
+            means ``cuda`` and raises when no GPU is present.
+    """
+
+    def __init__(self, cfg, device=None):
+        self.device = _resolve_device(device)
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.tracking_stage = 0
+        self.global_poses = {0: SE3()}
+        self.ref_data = {}
+        self.cur_data = {}
+        self.setup()
+
+    def setup(self):
+        self.timers = Timer()
+        self.dataset = dataset_registry[self.cfg.dataset](self.cfg)
+        self.tracking_method = self.cfg.tracking_method
+        self.tcfg = TrackingConfig.from_cfg(self.cfg)
+        # depth_src: gt feeds the dataset's depths and skips the depth CNN
+        self.use_gt_depth = getattr(self.dataset, "data_dir", {}).get("depth_src") == "gt"
+
+        self.frontend = DeepFrontend(self.cfg, self.device)
+        self.variables = self.frontend.load_variables(
+            torch.Generator().manual_seed(int(self.cfg.seed)))
+        # inference copy on the device in the network dtype
+        self.infer_variables = self.frontend.prepare_variables(self.variables)
+
+        K = self.dataset.cam_intrinsics
+        self.K = torch.as_tensor(K.mat, dtype=torch.float32, device=self.device)
+        self.K_inv = torch.as_tensor(K.inv_mat, dtype=torch.float32, device=self.device)
+        # the scale carried to the next frame stays on the device
+        self.prev_scale = torch.ones((), dtype=torch.float32, device=self.device)
+
+        self.drawer = None
+        if self.cfg.visualization.enable:
+            from .frame_drawer import FrameDrawer
+
+            self.drawer = FrameDrawer(self.cfg)
+
+    def _upload(self, arr, dtype=None):
+        """A host array on the device without a host synchronisation (pinned
+        staging, copied on the current stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _download(self, out, keys):
+        """Several device tensors on the host after one synchronisation."""
+        if self.device.type != "cuda":
+            return {k: out[k].numpy() for k in keys}
+        host = {k: torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=True)
+                for k in keys}
+        for k in keys:
+            host[k].copy_(out[k], non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return {k: v.numpy() for k, v in host.items()}
+
+    def update_global_pose(self, new_pose, scale=1.0):
+        """Chain the relative pose onto the current frame's pose (which
+        starts as the reference frame's global pose)."""
+        self.cur_data["pose"] = update_global_pose(self.cur_data["pose"], new_pose, scale)
+        self.global_poses[self.cur_data["id"]] = self.cur_data["pose"].copy()
+
+    # ------------------------------------------------------------------
+    def run_frame(self, img_id, img=None):
+        """Process one frame; returns the tracking mode's name ("n/a" when
+        the drawer is off, since reading it would cost a host read).
+
+        ``img`` may come from the prefetcher; otherwise the dataset loads
+        it.
+        """
+        self.cur_data["id"] = img_id
+        self.cur_data["timestamp"] = self.dataset.get_timestamp(img_id)
+
+        with self.timers.scope("data_loading", "DF-VO"):
+            if img is None:
+                img = self.dataset.get_image(self.cur_data["timestamp"])
+            self.cur_data["img"] = img
+            img_dev = self._upload(img)
+            gt_depth_dev = None
+            if self.use_gt_depth:
+                gt_depth_dev = self._upload(
+                    self.dataset.get_depth(self.cur_data["timestamp"]), torch.float32)
+
+        mode = "None"
+        if self.tracking_stage == 0:
+            # first frame: the global pose, and the depth the next frame's
+            # PnP fallback needs
+            if self.cfg.directory.gt_pose_dir is not None:
+                self.cur_data["pose"] = SE3(self.dataset.gt_poses[min(self.dataset.gt_poses)])
+            else:
+                self.cur_data["pose"] = SE3()
+            self.ref_data["motion"] = torch.eye(4, dtype=torch.float32, device=self.device)
+            if self.use_gt_depth:
+                self.cur_data["raw_depth_dev"] = gt_depth_dev
+            else:
+                with self.timers.scope("depth_cnn", "DF-VO"):
+                    self.cur_data["raw_depth_dev"] = depth_only(
+                        self.frontend, self.infer_variables, img_dev)
+        else:
+            with self.timers.scope("vo_step", "DF-VO"):
+                out = frame_step(
+                    self.frontend, self.tcfg, self.infer_variables, img_dev,
+                    self.ref_data["img_dev"], self.ref_data["raw_depth_dev"],
+                    self.ref_data["motion"], prng.fold_in(prng.PRNGKey(self.cfg.seed), img_id),
+                    self.K, self.K_inv, self.prev_scale, gt_depth_cur=gt_depth_dev)
+                pose_rel = SE3(out["pose"].to("cpu", torch.float64).numpy())
+            self.prev_scale = next_prev_scale(out["scale"], self.prev_scale)
+            drawn = None
+            mode = "n/a"
+            if self.drawer is not None:
+                drawn = self._download(out, _DRAWN)
+                mode = _MODE_NAMES[int(drawn["mode"])]
+            self.tracking_mode = mode  # shown in the drawer's text block
+            self.cur_data["pose"] = self.global_poses[self.ref_data["id"]].copy()
+            self.update_global_pose(pose_rel, 1.0)
+            # the next step's constant-motion model, kept on the device
+            self.ref_data["motion"] = out["pose"]
+            self.cur_data["raw_depth_dev"] = out["depth_cur_raw"]
+            self.cur_data["vo_out"] = out
+            if drawn is not None:
+                with self.timers.scope("visualization", "DF-VO"):
+                    self.drawer.draw_frame(self, drawn)
+
+        # roll cur -> ref
+        self.ref_data = {
+            "id": self.cur_data["id"],
+            "img": self.cur_data["img"],
+            "img_dev": img_dev,
+            "raw_depth_dev": self.cur_data["raw_depth_dev"],
+            "motion": self.ref_data["motion"],
+        }
+        self.tracking_stage += 1
+        return mode
+
+    def main(self, start_frame=0, num_frames=None):
+        """Run the sequence from ``start_frame`` (``num_frames`` of it, or
+        to its end), then save the results."""
+        from ..utils.native_loader import make_prefetcher
+
+        print("==> Start DF-VO")
+        print(f"==> Running sequence: {self.cfg.seq}")
+        end = len(self.dataset)
+        if num_frames is not None:
+            end = min(end, start_frame + num_frames)
+        frame_ids = list(range(start_frame, end, self.cfg.frame_step))
+
+        # decode ahead of the tracker
+        prefetcher = None
+        self.loader = "dataset"
+        if hasattr(self.dataset, "get_image_path") and frame_ids:
+            paths = [self.dataset.get_image_path(self.dataset.get_timestamp(i))
+                     for i in frame_ids]
+            prefetcher = make_prefetcher(paths, self.cfg.image.height, self.cfg.image.width)
+            self.loader = prefetcher.name
+        try:
+            for n, img_id in enumerate(frame_ids, 1):
+                self.timers.start("DF-VO")
+                img = prefetcher.next()[1] if prefetcher is not None else None
+                self.run_frame(img_id, img=img)
+                self.timers.end("DF-VO")
+                if n % PROGRESS_EVERY == 0 or n == len(frame_ids):
+                    print(f"==> frame {n}/{len(frame_ids)}, "
+                          f"{1.0 / max(self.timers.get_mean('DF-VO'), 1e-9):.2f} frames/s")
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        print("=> Finish!")
+        return self.save_results()
+
+    def save_state(self, path):
+        raise NotImplementedError(f"DFVO.save_state is not ported yet ({_ITEM11})")
+
+    def load_state(self, path):
+        raise NotImplementedError(f"DFVO.load_state is not ported yet ({_ITEM11})")
+
+    def save_results(self):
+        """Write ``<seq>.txt`` (and ``map.png`` with the drawer) to the
+        result directory, print the timers; returns {scope: mean s}."""
+        result_dir = self.cfg.directory.result_dir
+        mkdir_if_not_exists(result_dir)
+        print(f"The result is saved in [{result_dir}].")
+        if self.drawer is not None:
+            self.drawer.save_traj_map(os.path.join(result_dir, "map.png"))
+        self.dataset.save_result_traj(os.path.join(result_dir, f"{self.cfg.seq}.txt"),
+                                      self.global_poses)
+        return self.timers.time_analysis()

@@ -7,6 +7,8 @@ package, and applied with ``torch.func.functional_call`` to module
 templates that hold no weights of their own (built on the meta device).
 """
 
+import os
+
 import torch
 from torch.func import functional_call
 
@@ -47,13 +49,38 @@ def forward_backward_consistency(flow_fwd, flow_bwd):
     return torch.linalg.norm(flow_fwd - warped, dim=-1)
 
 
+def _scale_xy(flow, sx, sy):
+    """[x, y] vectors scaled per component by Python numbers (a device
+    tensor of the two would be a blocking host-to-device copy per call)."""
+    return torch.stack((flow[..., 0] * sx, flow[..., 1] * sy), dim=-1)
+
+
 def resize_dense_flow(flow, out_h, out_w):
     """Bilinear flow resize (align_corners=True) with magnitude rescaling."""
     _, h, w, _ = flow.shape
     resized = resize_bilinear(flow, out_h, out_w, align_corners=True)
-    scale = torch.tensor([out_w / w, out_h / h], dtype=flow.dtype,
-                         device=flow.device)
-    return resized * scale
+    return _scale_xy(resized, out_w / w, out_h / h)
+
+
+def _load_checkpoint(path):
+    """A torch checkpoint's tensors as float32 CPU tensors ("module."
+    prefixes of data-parallel saves dropped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    return {k.removeprefix("module."): v.float() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _match_template(sd, template, source):
+    """The checkpoint's entries for every key of ``template``, shapes
+    checked; entries the port's modules do not have (the encoder's
+    classifier) are left out."""
+    missing = sorted(k for k in template if k not in sd)
+    bad = sorted(k for k in template if k in sd and sd[k].shape != template[k].shape)
+    if missing or bad:
+        raise ValueError(f"{source}: missing {missing[:5]} ({len(missing)}), "
+                         f"shape mismatch {bad[:5]} ({len(bad)})")
+    return {k: sd[k] for k in template}
 
 
 class DeepFrontend:
@@ -103,6 +130,31 @@ class DeepFrontend:
             "flow": init_state_dict(self.flow_net, generator),
         }
 
+    def load_variables(self, generator):
+        """Float32 variables on the CPU: the seeded init, with each network
+        replaced by its checkpoint where the configured path holds one.
+
+        Monodepth2 comes as the model zoo's ``encoder.pth`` and
+        ``depth.pth`` in ``depth.deep_depth.pretrained_model``, LiteFlowNet
+        as ``deep_flow.flow_net_weight``; both load straight into the
+        modules' parameter names.
+        """
+        variables = self.init_variables(generator)
+        depth_dir = str(self.cfg.depth.deep_depth.pretrained_model or "")
+        enc = os.path.join(depth_dir, "encoder.pth")
+        dec = os.path.join(depth_dir, "depth.pth")
+        if os.path.isfile(enc) and os.path.isfile(dec):
+            sd = {"encoder." + k: v for k, v in _load_checkpoint(enc).items()}
+            sd.update({"decoder." + k: v for k, v in _load_checkpoint(dec).items()})
+            variables["depth"] = _match_template(sd, variables["depth"], depth_dir)
+            print(f"==> Initialize Depth-CNN with [{depth_dir}]")
+        flow_path = str(self.cfg.deep_flow.flow_net_weight or "")
+        if os.path.isfile(flow_path):
+            variables["flow"] = _match_template(_load_checkpoint(flow_path),
+                                                variables["flow"], flow_path)
+            print(f"==> Initialize {self.flow_kind} flow net with [{flow_path}]")
+        return variables
+
     def prepare_variables(self, variables):
         """Move variables to the device and cast float32 tensors to the
         network dtype (once, after loading)."""
@@ -135,10 +187,8 @@ class DeepFrontend:
         warp = grid_sample(
             -f_bwd_n, flow_to_coords(f_fwd_n), padding_mode="zeros"
         )
-        unit_scale = torch.tensor([self.w / wn, self.h / hn],
-                                  dtype=torch.float32, device=f_fwd_n.device)
         diff_n = torch.linalg.norm(
-            (f_fwd_n - warp) * unit_scale, dim=-1, keepdim=True
+            _scale_xy(f_fwd_n - warp, self.w / wn, self.h / hn), dim=-1, keepdim=True
         )
         return resize_bilinear(diff_n, self.h, self.w, align_corners=True)[..., 0]
 

@@ -2,8 +2,11 @@
 
 Counterpart of ``dfvo_tpu/utils/configuration.py``: a default YAML is
 recursively merged with optional custom YAMLs into an attribute-style
-config. Writing the merged config (``save_cfg``) comes with the CLI.
+config; ``save_cfg`` writes the merged config with each value that
+differs from the default annotated ``# |CHANGED|``.
 """
+
+import os
 
 import yaml
 
@@ -48,3 +51,40 @@ class ConfigLoader:
             if f is not None:
                 _merge_into(cfg, read_yaml(f))
         return cfg
+
+    def save_cfg(self, cfg_files, file_path):
+        """Write the merged config to ``file_path``; lines whose value
+        differs from the default (the first file) end with
+        ``# |CHANGED| default: <value>``. Returns the merged config."""
+        default = self.merge_cfg(cfg_files[:1])
+        merged = self.merge_cfg(cfg_files)
+        lines = []
+        _annotated_dump(merged, default, lines, indent=0)
+        os.makedirs(os.path.dirname(os.path.abspath(file_path)), exist_ok=True)
+        with open(file_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return merged
+
+
+def _annotated_dump(merged, default, lines, indent):
+    pad = "    " * indent
+    for key, val in merged.items():
+        dval = default.get(key, "__MISSING__") if isinstance(default, dict) else "__MISSING__"
+        if isinstance(val, dict):
+            lines.append(f"{pad}{key}:")
+            _annotated_dump(val, dval if isinstance(dval, dict) else {}, lines, indent + 1)
+            continue
+        rendered = yaml.safe_dump({key: _plain(val)}, default_flow_style=True)
+        rendered = rendered.strip().rstrip("}").lstrip("{")
+        if val != dval:
+            lines.append(f"{pad}{rendered}  # |CHANGED| default: {dval}")
+        else:
+            lines.append(f"{pad}{rendered}")
+
+
+def _plain(val):
+    if isinstance(val, AttrDict):
+        return val.to_dict()
+    if isinstance(val, tuple):
+        return list(val)
+    return val

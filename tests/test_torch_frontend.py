@@ -1,6 +1,6 @@
 """Parity of the PyTorch port's frontend slice with the JAX package, on the
 CPU in float32: ``DeepFrontend.infer`` and ``infer_chunk`` on 4 frames at
-64x96 from the JAX initialisation (the configuration of
+64x96 from seeded weights shared by both packages (the configuration of
 tests/test_infer_chunk.py, so the JAX programs are the same ones), and
 ``local_bestN`` on identical flow inputs.
 """
@@ -22,6 +22,7 @@ from dfvo_torch.utils import ConfigLoader as TConfigLoader
 from dfvo_tpu.matching import kp_selection as J_kp
 from dfvo_tpu.pipeline.frontend import DeepFrontend, flow_target_size
 from dfvo_tpu.utils import ConfigLoader
+from tests.test_torch_models import seeded_flax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CFG = os.path.join(REPO, "options/examples/default_configuration.yml")
@@ -37,9 +38,12 @@ def _cfg(loader):
 
 @pytest.fixture(scope="module")
 def slice_pair():
-    """Both frontends with the same (JAX-initialised) weights, and 4 frames."""
+    """Both frontends with the same seeded weights, and 4 frames. The JAX
+    variables are the port's seeded initialisation converted by the JAX
+    package's own converters (tests/test_torch_models.py), which compiles
+    nothing."""
     jfe = DeepFrontend(_cfg(ConfigLoader))
-    jvars = jax.device_get(jax.jit(jfe.init_variables)(jax.random.PRNGKey(0)))
+    jvars = seeded_flax_variables(0)
     tfe = TDeepFrontend(_cfg(TConfigLoader), "cpu")
     tvars = tfe.prepare_variables({
         "depth": bridge.monodepth2_depth_from_flax(jvars["depth"]),

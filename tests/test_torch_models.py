@@ -1,13 +1,20 @@
 """Parity of the PyTorch port's networks with the JAX package, on the CPU in
 float32 at 64x96: Monodepth2 depth and LiteFlowNet in all three pair modes.
 
-The JAX variables come from ``DeepFrontend.init_variables(PRNGKey(0))``'s
-initialisers and reach the port through the parameter bridge
-(``dfvo_torch.models.convert``). Biases and batch-norm statistics, which
-initialise to zero or the identity, are redrawn from a numpy seed so the
-bridge's handling of them is exercised; the flow-delta heads are scaled up
-so the flows are several pixels and every warp samples off the grid.
+The JAX variables are the port's seeded initialisation
+(``dfvo_torch.models.convert.init_state_dict``, the JAX package's
+initialisers) converted to Flax trees by the JAX package's own numpy
+converters (``dfvo_tpu/models/convert.py``), so no JAX initialisation is
+compiled; ``test_converted_trees_match_init_variables`` holds the trees to
+the structure of ``DeepFrontend.init_variables``. They reach the port
+through the parameter bridge (``dfvo_torch.models.convert``). Biases and
+batch-norm statistics, which initialise to zero or the identity, are
+redrawn from a numpy seed so the bridge's handling of them is exercised;
+the flow-delta heads are scaled up so the flows are several pixels and
+every warp samples off the grid.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -20,8 +27,40 @@ from dfvo_torch.models import LiteFlowNet as TLiteFlowNet
 from dfvo_torch.models import Monodepth2Depth as TMonodepth2Depth
 from dfvo_torch.models import convert as bridge
 from dfvo_tpu.models import LiteFlowNet, Monodepth2Depth
+from dfvo_tpu.models import convert as to_flax
 
 H, W = 64, 96
+DEFAULT_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "options/examples/default_configuration.yml")
+
+
+def _numpy_state(sd):
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def depth_flax_from_port(sd):
+    """A port ``Monodepth2Depth`` state dict -> the JAX package's Flax
+    variables, split into the encoder and decoder dicts of the model zoo's
+    ``encoder.pth`` and ``depth.pth``."""
+    enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    dec = {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")}
+    return to_flax.convert_monodepth2_depth(_numpy_state(enc), _numpy_state(dec))
+
+
+def lfn_flax_from_port(sd):
+    """A port ``LiteFlowNet`` state dict -> the JAX package's Flax variables."""
+    return to_flax.convert_liteflownet(_numpy_state(sd))
+
+
+def seeded_flax_variables(seed):
+    """Seeded random weights for both packages without a JAX compile: the
+    port's ``init_state_dict`` (depth net, then flow net, from one
+    generator), converted to Flax trees."""
+    meta = torch.device("meta")
+    gen = torch.Generator().manual_seed(seed)
+    depth = bridge.init_state_dict(TMonodepth2Depth(device=meta), gen)
+    flow = bridge.init_state_dict(TLiteFlowNet(device=meta), gen)
+    return {"depth": depth_flax_from_port(depth), "flow": lfn_flax_from_port(flow)}
 
 
 def _perturb(tree, rng, head_scale=1.0):
@@ -60,18 +99,39 @@ def images():
 
 @pytest.fixture(scope="module")
 def lfn_variables():
-    x = jnp.zeros((1, H, W, 3), jnp.float32)
-    v = jax.jit(LiteFlowNet().init)(jax.random.PRNGKey(0), x, x)
-    return _perturb(jax.device_get(v), np.random.RandomState(1), head_scale=40.0)
+    # generator seed 3: with the heads scaled x40 its flows reach ~5 px
+    # (seeds 0 and 1 stay under 1 px)
+    flow = bridge.init_state_dict(TLiteFlowNet(device=torch.device("meta")),
+                                  torch.Generator().manual_seed(3))
+    return _perturb(lfn_flax_from_port(flow), np.random.RandomState(1), head_scale=40.0)
+
+
+def _tree_shapes(tree):
+    return {jax.tree_util.keystr(path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def test_converted_trees_match_init_variables():
+    """The converted trees have the keys and shapes of the JAX package's
+    ``DeepFrontend.init_variables`` (traced by ``jax.eval_shape``, which
+    compiles nothing)."""
+    from dfvo_tpu.pipeline.frontend import DeepFrontend
+    from dfvo_tpu.utils import ConfigLoader
+
+    cfg = ConfigLoader().merge_cfg([DEFAULT_CFG])
+    cfg.image.height, cfg.image.width = H, W
+    want = jax.eval_shape(DeepFrontend(cfg).init_variables, jax.random.PRNGKey(0))
+    got = seeded_flax_variables(0)
+    assert _tree_shapes(got) == _tree_shapes(want)
+    assert all(leaf.dtype == np.float32 for leaf in jax.tree_util.tree_leaves(got))
 
 
 def test_monodepth2_depth_matches_jax(images):
     net = Monodepth2Depth()
     x = jnp.asarray(images[:2])
-    variables = _perturb(
-        jax.device_get(jax.jit(net.init)(jax.random.PRNGKey(0), x)),
-        np.random.RandomState(2),
-    )
+    depth = bridge.init_state_dict(TMonodepth2Depth(device=torch.device("meta")),
+                                   torch.Generator().manual_seed(0))
+    variables = _perturb(depth_flax_from_port(depth), np.random.RandomState(2))
     want = jax.jit(net.apply)(variables, x)
 
     port = TMonodepth2Depth()
@@ -122,8 +182,6 @@ def test_liteflownet_matches_jax(pair_mode, images, lfn_variables):
 def test_bridge_inverts_the_torch_to_flax_converter(lfn_variables):
     """The bridge is the inverse of dfvo_tpu.models.convert: a port state
     dict converted back to Flax gives the original variables."""
-    from dfvo_tpu.models import convert as to_flax
-
     sd = {k: v.numpy() for k, v in
           bridge.liteflownet_from_flax(lfn_variables).items()}
     back = to_flax.convert_liteflownet(sd)
