@@ -58,15 +58,16 @@ seconds, none caught:
    launches (5 / 5 / 14 per tracked frame and 4 head convs on the first,
    all on their Hopper variants) and the host reads of every frame (CUDA
    sync debug mode). Then the same loop in float32 on PARITY_FRAMES frames
-   on the card and on the CPU, drawer off: equal modes, poses within 0.01
-   deg and 1e-3 of the camera's GT travel, two host reads per tracked
-   frame.
+   on the card and on the CPU, drawer off: equal modes, valid keypoints
+   and inliers, each frame's relative pose within 0.01 deg and F32_T_REL
+   of its translation, two host reads per tracked frame.
 
 Weights and inputs are drawn from SEED.
 
 It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
-tracking numbers, a JSON line of the kernels (launches from the CLI run),
+tracking numbers, a JSON line of the kernels (launches from the slice
+phase, and from the CLI run as launches_cli),
 the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result, when no CUDA device is available
 or any phase fails.
@@ -113,6 +114,9 @@ DEPTH_ONLY_CALL = {"correlation": 0, "reg_dist_filter": 0, "head_conv": 4}
 FRAME_STEPS = 8
 RUN_FRAMES = 12
 PARITY_FRAMES = 4
+# the float32 loop's card-vs-CPU translation limit per frame, relative to
+# the estimate (run phase)
+F32_T_REL = 2e-2
 RUN_SEQ = "09"
 # KITTI odometry sequence 00's left camera (calib.txt P2), 1241x376 frames
 RUN_CALIB = "718.856 0.0 607.1928 45.38225 0.0 718.856 185.2157 -0.1130887 0.0 0.0 1.0 0.003779761"
@@ -1145,13 +1149,14 @@ def write_run_sequence(root, seed):
 class FrameRecorder:
     """Wraps DFVO.run_frame: host synchronisations of each frame (CUDA sync
     debug mode; none are counted on the CPU) and each tracked frame's mode,
-    read after the frame so the read is not counted."""
+    valid keypoints and inliers, read after the frame so the read is not
+    counted."""
 
     def __init__(self):
         from dfvo_torch.pipeline.dfvo import DFVO
 
         self.cls, self.orig = DFVO, DFVO.run_frame
-        self.syncs, self.modes, self.where = [], [], {}
+        self.syncs, self.modes, self.counts, self.where = [], [], [], {}
         rec = self
 
         def run_frame(vo, img_id, img=None):
@@ -1173,13 +1178,24 @@ class FrameRecorder:
             for loc in found:
                 rec.where[loc] = rec.where.get(loc, 0) + 1
             if vo.tracking_stage > 1:
-                rec.modes.append(int(vo.cur_data["vo_out"]["mode"]))
+                out = vo.cur_data["vo_out"]
+                mode_i, valid, inliers = torch.stack(
+                    [out["mode"].long(), out["kp_valid"].sum(), out["inliers"].sum()]).tolist()
+                rec.modes.append(mode_i)
+                rec.counts.append((valid, inliers))
             return mode
 
         DFVO.run_frame = run_frame
 
     def close(self):
         self.cls.run_frame = self.orig
+
+
+def relative_pose(global_poses, i):
+    """Frame i's pose relative to frame i - 1 from the chained global
+    poses (float64): the inverse of update_global_pose."""
+    A, B = global_poses[i - 1].pose, global_poses[i].pose
+    return A[:3, :3].T @ B[:3, :3], A[:3, :3].T @ (B[:3, 3] - A[:3, 3])
 
 
 def run_loop(cfg, device, frames):
@@ -1270,12 +1286,14 @@ def run_phase(seed, smi):
     print(f"  eval_seq (6dof): ATE {ev['ate']:.4f} m, RPE {ev['rpe_m']:.4f} m / "
           f"{ev['rpe_deg']:.4f} deg over {ev['seq_len']:.2f} m of GT")
 
-    # float32, drawer off: the card against the CPU. The seeded weights'
-    # flows (under 0.5 px, incoherent) give estimated motions of ~2e-5 m
-    # that are the remainder of cancelling terms, so float32 differences in
-    # the flows move them by a larger share; the translation is held to
-    # 1e-3 of the camera's GT travel since frame 0 and its share of the
-    # estimate is reported beside it
+    # float32, drawer off: the card against the CPU, each tracked frame's
+    # relative pose. The seeded weights' flows are incoherent and under a
+    # pixel, so the PnP translation (~2e-5 m on depths of ~0.1 m) is
+    # ill-conditioned: the flows' float32 differences (~6e-8 px, card vs
+    # CPU convolutions) move it by ~5e-3 of itself, and by 3e-4 to 1.3e-1
+    # with other seeds and head scalings (scripts/f32_loop_conditioning.py).
+    # F32_T_REL holds it relative to the estimate, so a zero or a doubled
+    # translation fails.
     runs = {}
     for device in ("cuda", "cpu"):
         f32 = load_cfg("float32")
@@ -1288,27 +1306,27 @@ def run_phase(seed, smi):
         fvo, frec = run_loop(f32, device, PARITY_FRAMES)
         runs[device] = (fvo, frec, time.perf_counter() - t0)
     (cvo, crec, cwall), (hvo, hrec, hwall) = runs["cuda"], runs["cpu"]
-    worst_rot = worst_t = worst_t_est = 0.0
+    if crec.modes != hrec.modes or crec.counts != hrec.counts:
+        fail(f"run f32: card modes {crec.modes}, (valid, inliers) {crec.counts} != "
+             f"CPU modes {hrec.modes}, {hrec.counts}")
+    worst_rot = worst_t = 0.0
+    t_est = []
     for i in range(1, PARITY_FRAMES):
-        P, Q = cvo.global_poses[i].pose, hvo.global_poses[i].pose
-        ang, dt = rot_deg(P[:3, :3], Q[:3, :3]), float(np.linalg.norm(P[:3, 3] - Q[:3, 3]))
-        travel = float(np.linalg.norm(gt[i][:3, 3] - gt[0][:3, 3]))
+        (Ra, ta), (Rb, tb) = (relative_pose(v.global_poses, i) for v in (cvo, hvo))
+        ang, dt, tn = rot_deg(Ra, Rb), float(np.linalg.norm(ta - tb)), float(np.linalg.norm(tb))
+        t_est.append(tn)
         worst_rot = max(worst_rot, ang)
-        worst_t = max(worst_t, dt / travel)
-        worst_t_est = max(worst_t_est, dt / max(float(np.linalg.norm(Q[:3, 3])), 1e-30))
-        if not (ang < 0.01 and dt <= 1e-3 * travel):
+        worst_t = max(worst_t, dt / tn if tn > 0 else math.inf)
+        if not (ang < 0.01 and tn > 0 and dt <= F32_T_REL * tn):
             fail(f"run f32 frame {i}: card vs CPU rotation {ang:.2e} deg, translation "
-                 f"{dt:.2e} (GT travel {travel:.2e})")
-    if crec.modes != hrec.modes:
-        fail(f"run f32: card modes {crec.modes} != CPU modes {hrec.modes}")
+                 f"{dt:.2e} on |t| {tn:.2e} (limit {F32_T_REL:g} |t|)")
     if crec.syncs != [0] + [RUN_HOST_READS[False]] * (PARITY_FRAMES - 1):
         fail(f"run f32: host reads per frame {crec.syncs}, expected 0 then "
              f"{RUN_HOST_READS[False]}; by source line {crec.where}")
     print(f"  float32 {PARITY_FRAMES} frames, drawer off: card {cwall:.2f} s, CPU {hwall:.2f} s; "
-          f"modes {crec.modes}; worst rotation {worst_rot:.2e} deg, translation "
-          f"{worst_t:.2e} of the GT travel ({worst_t_est:.2e} of the estimated |t|, "
-          f"{np.linalg.norm(hvo.global_poses[PARITY_FRAMES - 1].t):.2e} m at frame "
-          f"{PARITY_FRAMES - 1}); host reads per frame {crec.syncs}")
+          f"modes {crec.modes}, (valid, inliers) {crec.counts}; relative |t| "
+          f"{[f'{t:.2e}' for t in t_est]} m; worst rotation {worst_rot:.2e} deg, translation "
+          f"{worst_t:.2e} of |t| (limit {F32_T_REL:g}); host reads per frame {crec.syncs}")
     return {
         "frames": RUN_FRAMES, "size": [cfg.image.height, cfg.image.width],
         "dtype": str(vo.frontend.dtype).replace("torch.", ""), "loader": vo.loader,
@@ -1319,9 +1337,9 @@ def run_phase(seed, smi):
         "host_reads_per_frame": rec.syncs, "modes": rec.modes, "launches": launches,
         "eval_6dof": {"ate_m": ev["ate"], "rpe_m": ev["rpe_m"], "rpe_deg": ev["rpe_deg"]},
         "f32_card_vs_cpu": {"frames": PARITY_FRAMES, "modes": crec.modes,
-                            "worst_rot_deg": worst_rot, "worst_t_of_gt_travel": worst_t,
-                            "worst_t_of_estimated_t": worst_t_est,
-                            "host_reads_per_frame": crec.syncs},
+                            "valid_inliers": crec.counts, "t_norm_m": t_est,
+                            "worst_rot_deg": worst_rot, "worst_t_of_t": worst_t,
+                            "t_limit_of_t": F32_T_REL, "host_reads_per_frame": crec.syncs},
         "nvidia_smi": smi,
     }
 
@@ -1363,8 +1381,8 @@ def main():
     # each shape; per-shape rows are in the report
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "variant": MAIN_VARIANT[name], "launches": run["launches"][name],
-         "launches_slice": launches[name],
+         "variant": MAIN_VARIANT[name], "launches": launches[name],
+         "launches_cli": run["launches"][name],
          "launches_per_call": sums[name]["launches_per_call"],
          "max_abs_err": chk.max_abs_err[name],
          "ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],

@@ -170,21 +170,19 @@ def _has_cv2():
     return True
 
 
-def make_prefetcher(paths, out_h, out_w, prefer_native=True):
+def make_prefetcher(paths, out_h, out_w):
     """The native prefetcher where it builds, else the cv2 thread; prints
     which one runs. Raises RuntimeError naming both missing pieces when
     neither can run."""
-    if prefer_native and load_library() is not None:
+    if load_library() is not None:
         prefetcher = NativeFramePrefetcher(paths, out_h, out_w)
     elif _has_cv2():
         prefetcher = ThreadedFramePrefetcher(paths, out_h, out_w)
     else:
-        native = "not tried" if not prefer_native else _lib_error
         raise RuntimeError(
             "no frame decoder on this host: the native loader needs g++ with "
-            f"jpeglib.h and png.h ({native}), the fallback needs cv2 (not installed)"
+            f"jpeglib.h and png.h ({_lib_error}), the fallback needs cv2 (not installed)"
         )
     print(f"==> Frame loader: {prefetcher.name}"
-          + ("" if prefetcher.name == "native" or not prefer_native
-             else f" (native loader: {_lib_error})"))
+          + ("" if prefetcher.name == "native" else f" (native loader: {_lib_error})"))
     return prefetcher

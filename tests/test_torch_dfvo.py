@@ -6,7 +6,8 @@ tests/test_scan_runner.py::test_cli_scan_execution_matches_frame_execution:
 64x96, 32 hypotheses, float32, visualization off, so the JAX step program
 is one the JAX suite already compiles) with the same seeded weights:
 the JAX run's variables are the port's seeded initialisation converted by
-the JAX package's converters, and the port gets them back through the
+the JAX package's converters, with the flow net's biases redrawn and its
+flow-delta heads scaled x10, and the port gets them back through the
 parameter bridge. Then the port's CLI, ``python -m dfvo_torch.apis.run``,
 and its scoring CLI, through their ``main(argv)``.
 """
@@ -26,7 +27,7 @@ from dfvo_torch.utils.io import load_poses_from_txt
 from dfvo_tpu.pipeline import DFVO as JDFVO
 from dfvo_tpu.pipeline.frontend import DeepFrontend as JDeepFrontend
 from dfvo_tpu.utils import ConfigLoader
-from tests.test_torch_models import seeded_flax_variables
+from tests.test_torch_models import _perturb, seeded_flax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CFG = os.path.join(REPO, "options/examples/default_configuration.yml")
@@ -79,46 +80,63 @@ def _frame_cfg(loader, root, result_dir):
     return cfg
 
 
-def _record_modes(vo):
-    """Wrap ``vo.run_frame`` to collect each tracked frame's mode (a host
-    read the loops themselves skip with the drawer off)."""
-    modes, run = [], vo.run_frame
+def _record_frames(vo):
+    """Wrap ``vo.run_frame`` to collect each tracked frame's mode, scale,
+    valid keypoints and inliers (host reads the loops themselves skip with
+    the drawer off)."""
+    frames, run = [], vo.run_frame
 
     def run_frame(img_id, img=None):
         out = run(img_id, img=img)
         if vo.tracking_stage > 1:
-            modes.append(int(vo.cur_data["vo_out"]["mode"]))
+            o = vo.cur_data["vo_out"]
+            frames.append((int(np.asarray(o["mode"])), float(np.asarray(o["scale"])),
+                           int(np.asarray(o["kp_valid"]).sum()),
+                           int(np.asarray(o["inliers"]).sum())))
         return out
 
     vo.run_frame = run_frame
-    return modes
+    return frames
 
 
 def test_dfvo_main_matches_jax(tiny_kitti, tmp_path, monkeypatch):
     jvars = seeded_flax_variables(0)
+    # flows of ~0.4 px that pass the forward-backward check (x40 flows of
+    # several px fail it everywhere and leave no keypoints), so PnP moves
+    # the camera by millimetres per frame
+    jvars["flow"] = _perturb(jvars["flow"], np.random.RandomState(0), head_scale=10.0)
     # the JAX loop initialises its networks eagerly (op by op, about a
     # minute on the CPU); hand it the converted variables instead
     monkeypatch.setattr(JDeepFrontend, "init_variables",
                         lambda self, rng: jax.tree.map(jnp.asarray, jvars))
     jvo = JDFVO(_frame_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax"))
-    j_modes = _record_modes(jvo)
+    j_frames = _record_frames(jvo)
     jvo.main()
 
     tvo = TDFVO(_frame_cfg(TConfigLoader, tiny_kitti, tmp_path / "torch"), device="cpu")
     tvo.variables = {"depth": bridge.monodepth2_depth_from_flax(jvars["depth"]),
                      "flow": bridge.liteflownet_from_flax(jvars["flow"])}
     tvo.infer_variables = tvo.frontend.prepare_variables(tvo.variables)
-    t_modes = _record_modes(tvo)
+    t_frames = _record_frames(tvo)
     tvo.main()
 
     want = load_poses_from_txt(str(tmp_path / "jax" / "07.txt"))
     got = load_poses_from_txt(str(tmp_path / "torch" / "07.txt"))
     assert sorted(got) == sorted(want) == list(range(N_FRAMES))
+    # the compared motion lies far above the tolerance: an identity or a
+    # halved trajectory fails
+    assert max(np.linalg.norm(p[:3, 3]) for p in want.values()) >= 100 * 1e-5
+    assert max(np.abs(p[:3, :3] - np.eye(3)).max() for p in want.values()) >= 100 * 1e-5
     # float32 steps (pose within 1e-5 each, tests/test_torch_frontend.py)
     # chained in float64 over 7 frames: 1e-5
     for i in want:
         np.testing.assert_allclose(got[i], want[i], atol=1e-5, err_msg=f"frame {i}")
-    assert t_modes == j_modes and len(t_modes) == N_FRAMES - 1
+    assert len(t_frames) == len(j_frames) == N_FRAMES - 1
+    for i, (t, j) in enumerate(zip(t_frames, j_frames), 1):
+        # mode, valid keypoints and inliers equal; the scale as in
+        # test_frame_steps_match_jax
+        assert (t[0], t[2], t[3]) == (j[0], j[2], j[3]), f"frame {i}"
+        np.testing.assert_allclose(t[1], j[1], rtol=1e-3, err_msg=f"frame {i}")
 
 
 def test_cli_writes_trajectory_config_and_scores(tiny_kitti, tmp_path):

@@ -352,7 +352,7 @@ def test_prefetchers_match_jax_and_cv2(layouts):
     assert T_nl.library_path().parent == T_nl.BUILD_DIR
     assert T_nl.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     want = J_nl.NativeFramePrefetcher(paths, 64, 96)
-    threaded = T_nl.make_prefetcher(paths, 64, 96, prefer_native=False)
+    threaded = T_nl.ThreadedFramePrefetcher(paths, 64, 96)
     assert threaded.name == "cv2-thread"
     for i in range(4):
         idx, img = native.next()
