@@ -61,13 +61,26 @@ seconds, none caught:
    on the card and on the CPU, drawer off: equal modes, valid keypoints
    and inliers, each frame's relative pose within 0.01 deg and F32_T_REL
    of its translation, two host reads per tracked frame.
+12. scan: the CLI again with `tpu.execution: scan` (chunks of 32, bf16,
+   drawer on) over SCAN_FRAMES frames, two full chunks and a padded
+   third: SCAN_FRAMES finite poses starting at the GT's first pose,
+   eval_seq, the map, 5 / 5 / 14 launches per chunk (all Hopper
+   variants) and 4 on the first frame, and SCAN_HOST_READS host reads per
+   chunk by source line (none on the first frame). Then one chunk_step on
+   bench.py's coherent oracle drive: every frame by E, within 0.1 deg and
+   5 % of |t| of the GT; CUDA-event medians, kernels, busy share, host
+   syncs (one) and peak memory of that chunk and of the same chunk without
+   the oracle (PnP on every frame); and the float32 oracle chunk of
+   SCAN_PARITY_PAIRS pairs on the card against the CPU (equal modes,
+   rotation within 0.01 deg, translation within SCAN_T_REL of |t|).
 
 Weights and inputs are drawn from SEED.
 
 It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
-tracking numbers, a JSON line of the kernels (launches from the slice
-phase, and from the CLI run as launches_cli),
+tracking numbers, a JSON line of the scan execution, a JSON line of the
+kernels (launches from the slice phase, from the CLI run as
+launches_cli and from the scan execution as launches_scan),
 the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result, when no CUDA device is available
 or any phase fails.
@@ -124,6 +137,14 @@ RUN_SIZE = (376, 1241)
 # host reads per tracked frame: the PnP decision and the pose, plus one
 # batched download for the drawer
 RUN_HOST_READS = {False: 2, True: 3}
+# the scan execution's sequence: two full chunks of 32 and a padded third
+SCAN_FRAMES = 1 + 32 + 32 + 9
+# host reads per chunk of the scan execution: the chunk's decision tensors
+# and its poses
+SCAN_HOST_READS = 2
+# the float32 oracle chunk on the card and on the CPU (scan phase)
+SCAN_PARITY_PAIRS = 8
+SCAN_T_REL = 1e-3
 # the tracking scenes' intrinsics (tests/test_pipeline.py)
 TRACK_K = np.array([[370.0, 0, 320.0], [0, 371.0, 96.0], [0, 0, 1.0]], np.float32)
 # the variant each kernel's bf16 main-path launches must take
@@ -338,6 +359,30 @@ def kernels_phase(chk):
                 lambda a, b: correlation_plain(a, b, 3, 2),
                 (chk.randn((2, 48, 160, 64)), chk.randn((2, 48, 160, 64))),
                 main_path=False)
+    # no backward pass yet: a CUDA input that requires grad is refused while
+    # autograd records, before any launch
+    x = chk.randn((2, 12, 40, 64)).bfloat16()
+    raw, flow = chk.randn((2, 12, 40, 9)).bfloat16(), chk.randn((2, 12, 40, 2)).bfloat16()
+    wts = [chk.randn((1, 9, 1, 1)).bfloat16(), chk.randn((1,)).bfloat16()] * 2
+    head = chk.randn((3, 3, 64, 2)).bfloat16()
+    calls = {"correlation": (correlation_cuda, lambda g: (g(x), x, 3, 1)),
+             "reg_dist_filter": (reg_dist_filter_cuda, lambda g: (raw, g(flow), *wts, 3)),
+             "head_conv": (head_conv_cuda, lambda g: (x, g(head)))}
+    for name, (fn, args) in calls.items():
+        before = fn.launches
+        try:
+            fn(*args(lambda t: t.clone().requires_grad_(True)))
+        except RuntimeError as e:
+            if "no backward pass" not in str(e):
+                raise
+        else:
+            fail(f"{name}: a CUDA input that requires grad was not refused")
+        with torch.no_grad():
+            fn(*args(lambda t: t.clone().requires_grad_(True)))
+        if fn.launches != before + 1:
+            fail(f"{name}: {fn.launches - before} launches around the grad refusal, expected 1")
+    print("  correlation, reg_dist_filter, head_conv: CUDA inputs that require grad refused "
+          "while autograd records (no launch); launched under no_grad")
 
 
 def check_head(chk, name, n, hwc, cout, k, pre, kernel_fn, plain_fn, prep=None,
@@ -1119,22 +1164,22 @@ def tracking_phase(fe, variables, scenes, frame, out_dir):
     return result
 
 
-def write_run_sequence(root, seed):
-    """A KITTI-odometry-layout sequence of RUN_FRAMES JPEG frames (a smooth
+def write_run_sequence(root, seed, frames=RUN_FRAMES):
+    """A KITTI-odometry-layout sequence of ``frames`` JPEG frames (a smooth
     texture panning 2 px per frame), its calib.txt and GT poses (the
     camera moving 5.6 cm right per frame, a 2 px shift at 20 m)."""
     import cv2
 
     h, w = RUN_SIZE
     rng = np.random.default_rng(seed)
-    span = w + 2 * RUN_FRAMES
+    span = w + 2 * frames
     coarse = rng.integers(0, 256, (h // 8, span // 8, 3)).astype(np.uint8)
     texture = cv2.resize(coarse, (span, h), interpolation=cv2.INTER_CUBIC)
     seq_dir = os.path.join(root, "odom_data", RUN_SEQ)
     os.makedirs(os.path.join(seq_dir, "image_2"), exist_ok=True)
     os.makedirs(os.path.join(root, "gt_poses"), exist_ok=True)
     lines = []
-    for i in range(RUN_FRAMES):
+    for i in range(frames):
         cv2.imwrite(os.path.join(seq_dir, "image_2", f"{i:06d}.jpg"),
                     texture[:, 2 * i : 2 * i + w])
         P = np.eye(4)
@@ -1344,6 +1389,284 @@ def run_phase(seed, smi):
     }
 
 
+def oracle_chunk(h, w, pairs, seed):
+    """bench.py's coherent-motion drive: a rigid scene (synth/oracle.py),
+    photometrically consistent frames, and flows corrupted in two
+    rectangles that the forward-backward map flags. Returns (K, frames
+    [pairs+1,h,w,3], depths [pairs+1,h,w], flows [pairs,h,w,2], diffs
+    [pairs,h,w], motions [pairs] T_cur2ref)."""
+    from dfvo_torch.synth.oracle import (corrupt_flow, make_oracle_sequence, render_images,
+                                         structured_flow_diff)
+
+    K = np.array([[0.58 * w, 0, 0.5 * w], [0, 1.92 * h, 0.5 * h], [0, 0, 1]], np.float32)
+    depths, flows, motions = make_oracle_sequence(h, w, K, pairs + 1, seed=seed)
+    images = render_images(depths, flows, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    diffs, flows_c = [], []
+    for f in flows:
+        d, bad = structured_flow_diff(rng, h, w, n_bad=2)
+        diffs.append(d)
+        flows_c.append(corrupt_flow(f, bad, rng))
+    return (K, np.stack(images), np.stack(depths), np.stack(flows_c), np.stack(diffs),
+            motions)
+
+
+class ScanRecorder:
+    """Wraps DFVO._main_scan under CUDA sync debug mode and splits its host
+    synchronisations, located by source line, at the end of the first
+    frame's depth and of each chunk (the ``depth_cnn`` and ``DF-VO``
+    timers)."""
+
+    def __init__(self):
+        import warnings
+
+        from dfvo_torch.pipeline.dfvo import DFVO
+        from dfvo_torch.utils.timer import Timer
+
+        self.cls, self.orig = DFVO, DFVO._main_scan
+        self.timer, self.orig_end = Timer, Timer.end
+        self.caught, self.marks, self.found = None, [], []
+        rec = self
+
+        def end(timer, name):
+            rec.orig_end(timer, name)
+            if name in ("depth_cnn", "DF-VO") and rec.caught is not None:
+                rec.marks.append(len(rec.caught))
+
+        def main_scan(vo, *a, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                rec.caught = caught
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return rec.orig(vo, *a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    rec.found = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                                 if "called a synchronizing CUDA operation" in str(w.message)
+                                 else None for w in caught]
+                    rec.caught = None
+
+        Timer.end, DFVO._main_scan = end, main_scan
+
+    def windows(self):
+        """Host reads before the first chunk, in each chunk, and after."""
+        bounds = [0] + self.marks + [len(self.found)]
+        return [[f for f in self.found[a:b] if f] for a, b in zip(bounds, bounds[1:])]
+
+    def close(self):
+        self.timer.end, self.cls._main_scan = self.orig_end, self.orig
+
+
+@phase("scan")
+def scan_phase(seed, out_dir):
+    """The CLI in scan execution on the card (192x640 bf16, chunks of 32,
+    drawer on) over SCAN_FRAMES frames; then one chunk_step on the oracle
+    drive (the E path) held to the GT, timed and profiled beside the same
+    chunk without the oracle (random weights: PnP on every frame), and
+    the float32 oracle chunk on the card against the CPU."""
+    from dfvo_torch.apis import run as cli
+    from dfvo_torch.evaluation import KittiEvalOdom
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+    from dfvo_torch.pipeline.scan_runner import make_chunk_step
+    from dfvo_torch.pipeline.tracking import TRACK_MODE_ESSENTIAL, TrackingConfig
+    from dfvo_torch.utils import prng
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "scan")
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    write_run_sequence(data, seed, SCAN_FRAMES)
+    custom = os.path.join(root, "custom.yml")
+    with open(custom, "w") as f:
+        f.write(f'seq: "{RUN_SEQ}"\n'
+                f"directory: {{img_seq_dir: {data}/odom_data, gt_pose_dir: {data}/gt_poses, "
+                f"result_dir: {result}}}\n"
+                "tpu: {execution: scan}\n")
+    print(f"  {SCAN_FRAMES} frames {RUN_SIZE[1]}x{RUN_SIZE[0]} jpg in {os.path.relpath(data, ROOT)}")
+
+    counters = reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = ScanRecorder()
+    try:
+        t0 = time.perf_counter()
+        vo = cli.main(["-d", CFG, "-c", custom, "--no_confirm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+    cli_peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    variants = {k: dict(fn.variant_launches) for k, fn in counters.items()
+                if hasattr(fn, "variant_launches")}
+    cfg = vo.cfg
+    chunk = int(cfg.tpu.scan_chunk)
+    tracked = SCAN_FRAMES - 1
+    n_chunks = math.ceil(tracked / chunk)
+    print(f"  {cfg.image.height}x{cfg.image.width} {vo.frontend.dtype}, chunks of {chunk}, "
+          f"loader {vo.loader}, drawer {'on' if vo.drawer is not None else 'off'}; main() in "
+          f"{wall:.2f} s (setup included); peak memory {cli_peak / 2**30:.2f} GiB")
+    if chunk != 32 or str(vo.frontend.dtype) != "torch.bfloat16" or vo.drawer is None:
+        fail(f"scan: the default YAML gave chunk {chunk}, {vo.frontend.dtype}, drawer "
+             f"{vo.drawer is not None}")
+
+    traj = load_poses_from_txt(os.path.join(result, f"{RUN_SEQ}.txt"))
+    if sorted(traj) != list(range(SCAN_FRAMES)) or not all(np.isfinite(p).all()
+                                                         for p in traj.values()):
+        fail(f"scan: {RUN_SEQ}.txt holds frames {sorted(traj)}, expected {SCAN_FRAMES} "
+             "finite poses")
+    if vo.tracking_stage != SCAN_FRAMES or not os.path.isfile(os.path.join(result, "map.png")):
+        fail(f"scan: tracking_stage {vo.tracking_stage}, map.png written "
+             f"{os.path.isfile(os.path.join(result, 'map.png'))}")
+    with open(os.path.join(result, "configuration.yml")) as f:
+        if "execution: scan  # |CHANGED|" not in f.read():
+            fail("scan: configuration.yml does not record tpu.execution: scan")
+    gt = load_poses_from_txt(os.path.join(data, "gt_poses", f"{RUN_SEQ}.txt"))
+    if not np.allclose(traj[0], gt[0]):
+        fail("scan: the trajectory does not start at the GT's first pose")
+    ev = KittiEvalOdom().eval_seq(gt, traj, alignment="6dof")
+    if not all(np.isfinite(ev[k]) for k in ("ate", "rpe_m", "rpe_deg")):
+        fail(f"scan: eval_seq gave ATE {ev['ate']}, RPE {ev['rpe_m']} m / {ev['rpe_deg']} deg")
+    expected = {k: n_chunks * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    print(f"  launches {launches}, expected {expected} ({PER_CALL} per chunk, "
+          f"{DEPTH_ONLY_CALL} on the first frame); by variant {variants}")
+    if launches != expected:
+        fail(f"scan launch counts {launches} != {expected}")
+    for k, by in variants.items():
+        if by[MAIN_VARIANT[k]] != expected[k]:
+            fail(f"scan: {k} launches by variant {by}, expected all {MAIN_VARIANT[k]}")
+    windows = rec.windows()
+    reads = [len(x) for x in windows]
+    where = {}
+    for loc in (loc for x in windows for loc in x):
+        where[loc] = where.get(loc, 0) + 1
+    want_reads = [0] + [SCAN_HOST_READS] * n_chunks + [0]
+    print(f"  host reads: first frame, each chunk, after: {reads} (expected {want_reads}); "
+          f"by source line {where}")
+    if reads != want_reads:
+        fail(f"scan: host reads {reads}, expected {want_reads}; by source line {where}")
+    chunk_ms = [1e3 * t for t in vo.timers.timers["DF-VO"]["times"]]
+    scope_ms = {k: 1e3 * sum(vo.timers.timers[k]["times"]) / tracked
+                for k in ("data_loading", "vo_step", "visualization", "DF-VO")}
+    scope_ms["depth_cnn_first_frame"] = 1e3 * vo.timers.timers["depth_cnn"]["times"][0]
+    steady = chunk_ms[1] / chunk
+    print("  DF-VO per chunk (ms) " + str([round(t, 2) for t in chunk_ms])
+          + "; per tracked frame (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in scope_ms.items())
+          + f"; the second (full, warm) chunk {steady:.2f} ms/frame")
+    print(f"  eval_seq (6dof): ATE {ev['ate']:.4f} m, RPE {ev['rpe_m']:.4f} m / "
+          f"{ev['rpe_deg']:.4f} deg over {ev['seq_len']:.2f} m of GT")
+
+    # one chunk on the oracle drive: the E path
+    fe, variables, tcfg = vo.frontend, vo.infer_variables, vo.tcfg
+    h, w = cfg.image.height, cfg.image.width
+    K, frames, depths, flows, diffs, motions = oracle_chunk(h, w, chunk, seed)
+    step, init_depth = make_chunk_step(fe, tcfg)
+    dev = torch.device("cuda")
+    Kd = torch.from_numpy(K).to(dev)
+    Kid = torch.from_numpy(np.linalg.inv(K).astype(np.float32)).to(dev)
+    imgs = torch.from_numpy(frames).to(dev)
+    keys = torch.from_numpy(prng.chunk_keys(seed, range(1, chunk + 1)).astype(np.int64)).to(dev)
+    oracle = {"depths": torch.from_numpy(depths[1:]).to(dev),
+              "flow_fwd": torch.from_numpy(flows).to(dev),
+              "flow_diff": torch.from_numpy(diffs).to(dev)}
+    eye = torch.eye(4, device=dev)
+    carry_oracle = (imgs[0], torch.from_numpy(depths[0]).to(dev), eye, np.float32(1.0))
+    carry_net = (imgs[0], init_depth(variables, imgs[0]), eye, np.float32(1.0))
+    info = {}
+
+    def e_chunk():
+        return step(variables, imgs[1:], carry_oracle, keys, Kd, Kid, oracle=oracle, info=info)
+
+    def pnp_chunk():
+        return step(variables, imgs[1:], carry_net, keys, Kd, Kid)
+
+    counters = reset_launch_counts()
+    poses, modes, _ = e_chunk()
+    per_chunk = {k: fn.launches for k, fn in counters.items()}
+    if per_chunk != PER_CALL:
+        fail(f"scan chunk_step launches {per_chunk} != {PER_CALL}")
+    poses = poses.cpu().numpy().astype(np.float64)
+    errs = []
+    for i, T_gt in enumerate(motions):
+        ang = rot_deg(poses[i][:3, :3], T_gt[:3, :3])
+        tn = float(np.linalg.norm(T_gt[:3, 3]))
+        errs.append((ang, float(np.linalg.norm(poses[i][:3, 3] - T_gt[:3, 3])) / tn))
+    worst_rot, worst_t = max(e[0] for e in errs), max(e[1] for e in errs)
+    print(f"  oracle chunk: modes {modes.tolist()}, worst rotation {worst_rot:.3e} deg, "
+          f"translation {worst_t:.3e} of |t_gt| (bounds 0.1 deg, 0.05 |t|)")
+    if not (modes == TRACK_MODE_ESSENTIAL).all() or worst_rot >= 0.1 or worst_t >= 0.05:
+        fail(f"scan oracle chunk: modes {modes.tolist()}, rotation {worst_rot:.3e} deg, "
+             f"translation {worst_t:.3e} of |t|")
+    pnp_modes = pnp_chunk()[1]
+
+    result_t = {}
+    for name, fn in (("e_path", e_chunk), ("pnp_every_frame", pnp_chunk)):
+        syncs = count_syncs(fn)
+        if syncs != 1:
+            fail(f"scan chunk_step ({name}): {syncs} host syncs, expected 1 (the decision)")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_cuda(fn, reps=1, rounds=5)
+        prof = profile_call(fn, f"chunk_step_{name}", out_dir)
+        result_t[name] = {"ms_per_chunk": ms, "ms_per_frame": ms / chunk, "host_syncs": syncs,
+                          "peak_mem_gib": peak / 2**30, **prof}
+        print(f"  chunk_step {name}: {ms:.2f} ms per chunk of {chunk}, {ms / chunk:.3f} ms/frame "
+              f"(CUDA events, median); {prof['kernels']} kernels, busy "
+              f"{100 * prof['busy_share']:.1f} %; peak {peak / 2**30:.2f} GiB above "
+              f"{base / 2**30:.2f} GiB", flush=True)
+    result_t["pnp_every_frame"]["modes"] = pnp_modes.tolist()
+
+    # float32: the oracle chunk's first pairs on the card and on the CPU
+    f32 = load_cfg("float32")
+    p = SCAN_PARITY_PAIRS
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fe32 = DeepFrontend(f32, device)
+        v32 = fe32.prepare_variables(fe32.init_variables(torch.Generator().manual_seed(seed)))
+        step32, _ = make_chunk_step(fe32, TrackingConfig.from_cfg(f32))
+        to = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
+        t0 = time.perf_counter()
+        pz, md, _ = step32(v32, to(frames[1 : p + 1]),
+                           (to(frames[0]), to(depths[0]), torch.eye(4, device=device),
+                            np.float32(1.0)),
+                           to(prng.chunk_keys(seed, range(1, p + 1)).astype(np.int64)), to(K),
+                           to(np.linalg.inv(K).astype(np.float32)),
+                           oracle={"depths": to(depths[1 : p + 1]), "flow_fwd": to(flows[:p]),
+                                   "flow_diff": to(diffs[:p])})
+        outs[device] = (pz.cpu().numpy().astype(np.float64), md, time.perf_counter() - t0)
+    (pc, mc, tc), (ph, mh, th) = outs["cuda"], outs["cpu"]
+    par_rot = par_t = 0.0
+    for i in range(p):
+        ang = rot_deg(pc[i][:3, :3], ph[i][:3, :3])
+        tn = float(np.linalg.norm(ph[i][:3, 3]))
+        par_rot = max(par_rot, ang)
+        par_t = max(par_t, float(np.linalg.norm(pc[i][:3, 3] - ph[i][:3, 3])) / tn)
+    print(f"  float32 oracle chunk of {p}: card {tc:.2f} s, CPU {th:.2f} s; modes {mc.tolist()}; "
+          f"worst rotation {par_rot:.2e} deg, translation {par_t:.2e} of |t| "
+          f"(limits 0.01 deg, {SCAN_T_REL:g} |t|)")
+    if mc.tolist() != mh.tolist() or not (mc == TRACK_MODE_ESSENTIAL).all() \
+            or par_rot >= 0.01 or par_t > SCAN_T_REL:
+        fail(f"scan f32 card vs CPU: modes {mc.tolist()} / {mh.tolist()}, rotation "
+             f"{par_rot:.2e} deg, translation {par_t:.2e} of |t|")
+    return {
+        "frames": SCAN_FRAMES, "chunk": chunk, "chunks": n_chunks,
+        "size": [h, w], "dtype": str(fe.dtype).replace("torch.", ""), "loader": vo.loader,
+        "drawer": vo.drawer is not None, "df_vo_ms_per_chunk": chunk_ms,
+        "ms_per_tracked_frame": scope_ms, "df_vo_steady_ms_per_frame": steady,
+        "frames_per_s": 1e3 / scope_ms["DF-VO"], "host_reads": reads,
+        "host_reads_by_line": where, "launches": launches, "cli_peak_mem_gib": cli_peak / 2**30,
+        "eval_6dof": {"ate_m": ev["ate"], "rpe_m": ev["rpe_m"], "rpe_deg": ev["rpe_deg"]},
+        "oracle_modes": modes.tolist(), "oracle_worst_rot_deg": worst_rot,
+        "oracle_worst_t_of_t": worst_t, "chunk_step": result_t,
+        "f32_card_vs_cpu": {"pairs": p, "modes": mc.tolist(), "worst_rot_deg": par_rot,
+                            "worst_t_of_t": par_t, "t_limit_of_t": SCAN_T_REL},
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke", "chip_smoke.json"))
@@ -1370,6 +1693,7 @@ def main():
     profile = profile_phase(fe, variables, imgs, out_dir)
     tracking = tracking_phase(fe, variables, scenes, frame, out_dir)
     run = run_phase(SEED, smi)
+    scan = scan_phase(SEED, out_dir)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -1383,6 +1707,7 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "variant": MAIN_VARIANT[name], "launches": launches[name],
          "launches_cli": run["launches"][name],
+         "launches_scan": scan["launches"][name],
          "launches_per_call": sums[name]["launches_per_call"],
          "max_abs_err": chk.max_abs_err[name],
          "ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],
@@ -1397,7 +1722,7 @@ def main():
         "max_abs_err_f32": chk.max_abs_err_f32,
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
-        "tracking": tracking, "run": run,
+        "tracking": tracking, "run": run, "scan": scan,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
@@ -1420,6 +1745,13 @@ def main():
         "frame_modes": frame["modes"],
         "track": {k: {kk: vv for kk, vv in v.items() if kk != "card_vs_cpu"}
                   for k, v in track.items()}}}))
+    print(json.dumps({"scan": {k: scan[k] for k in (
+        "frames", "chunk", "size", "dtype", "df_vo_ms_per_chunk", "ms_per_tracked_frame",
+        "df_vo_steady_ms_per_frame", "frames_per_s", "host_reads", "host_reads_by_line",
+        "launches", "cli_peak_mem_gib", "eval_6dof", "oracle_modes", "oracle_worst_rot_deg",
+        "oracle_worst_t_of_t", "f32_card_vs_cpu")} | {"chunk_step": {
+            name: {k: v for k, v in r.items() if k != "top"}
+            for name, r in scan["chunk_step"].items()}}}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -67,7 +67,8 @@ def rigid_flow(depth, T, K, inv_K):
 
 @highp
 def unproject_kp(kp, kp_depth, inv_K):
-    """Pixel keypoints [N x 2] + depths [N] -> camera-frame points [N x 3]."""
+    """Pixel keypoints [... x N x 2] + depths [... x N] -> camera-frame
+    points [... x N x 3]."""
     pix_h = torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1)
     rays = pix_h @ inv_K.T
     return rays * kp_depth[..., None]

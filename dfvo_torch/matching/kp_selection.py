@@ -17,6 +17,9 @@ import math
 import numpy as np
 import torch
 
+from ..solvers.ransac import pick
+from ..utils.device import upload
+
 
 @functools.lru_cache(maxsize=None)
 def _cell_geometry(h, w, num_row, num_col):
@@ -52,25 +55,25 @@ def cell_index_table(h, w, num_row, num_col):
 
 
 def gather_cells_view(values2d, h, w, num_row, num_col):
-    """[H x W] map -> [n_cells x (Hc*Wc)] per-cell view by static slicing.
-    Pad slots hold neighbouring pixels (or zeros past the image) and must be
-    masked by the caller via ``table >= 0``."""
+    """[... x H x W] map -> [... x n_cells x (Hc*Wc)] per-cell view by
+    static slicing. Pad slots hold neighbouring pixels (or zeros past the
+    image) and must be masked by the caller via ``table >= 0``."""
     y_bounds, x_bounds, hc, wc = _cell_geometry(h, w, num_row, num_col)
     rows = []
     for y0, _ in y_bounds:
-        sl = values2d[y0 : y0 + hc]
-        if sl.shape[0] < hc:  # bottom cells: pad reads past the image
-            sl = torch.nn.functional.pad(sl, (0, 0, 0, hc - sl.shape[0]))
+        sl = values2d[..., y0 : y0 + hc, :]
+        if sl.shape[-2] < hc:  # bottom cells: pad reads past the image
+            sl = torch.nn.functional.pad(sl, (0, 0, 0, hc - sl.shape[-2]))
         rows.append(sl)
-    stacked = torch.stack(rows)  # [R, Hc, W]
+    stacked = torch.stack(rows, dim=-3)  # [..., R, Hc, W]
     cols = []
     for x0, _ in x_bounds:
-        sl = stacked[:, :, x0 : x0 + wc]
-        if sl.shape[2] < wc:
-            sl = torch.nn.functional.pad(sl, (0, wc - sl.shape[2]))
+        sl = stacked[..., x0 : x0 + wc]
+        if sl.shape[-1] < wc:
+            sl = torch.nn.functional.pad(sl, (0, wc - sl.shape[-1]))
         cols.append(sl)
-    view = torch.stack(cols, dim=1)  # [R, C, Hc, Wc]
-    return view.reshape(num_row * num_col, hc * wc)
+    view = torch.stack(cols, dim=-3)  # [..., R, C, Hc, Wc]
+    return view.reshape(values2d.shape[:-2] + (num_row * num_col, hc * wc))
 
 
 class KPSelectionSpec:
@@ -90,7 +93,7 @@ class KPSelectionSpec:
         """The cell table as a tensor on ``device`` (built once per device)."""
         device = torch.device(device)
         if device not in self._tables:
-            self._tables[device] = torch.as_tensor(self.table.copy(), device=device)
+            self._tables[device] = upload(self.table.copy(), device)
         return self._tables[device]
 
 
@@ -106,23 +109,25 @@ def _select_best_per_cell(score_cells, valid_cells, k):
     )
     idx, val = [], []
     for _ in range(k):
-        j = torch.argmin(scores, dim=1, keepdim=True)
-        val.append(torch.gather(scores, 1, j)[:, 0])
+        j = torch.argmin(scores, dim=-1, keepdim=True)
+        val.append(torch.gather(scores, -1, j)[..., 0])
         # scatter_ takes the value as a kernel argument; an indexed
         # assignment would copy it to the card and synchronise
-        scores.scatter_(1, j, math.inf)
-        idx.append(j[:, 0])
-    return torch.stack(idx, dim=1), torch.isfinite(torch.stack(val, dim=1))
+        scores.scatter_(-1, j, math.inf)
+        idx.append(j[..., 0])
+    return torch.stack(idx, dim=-1), torch.isfinite(torch.stack(val, dim=-1))
 
 
 def _kp_outputs(spec, flow, table, local_idx, sel_valid):
     """Per-cell selections -> flat kp1/kp2 arrays + validity."""
-    sel_flat_idx = torch.gather(table.clamp(min=0), 1, local_idx).reshape(-1)
+    lead = local_idx.shape[:-2]
+    cells = table.clamp(min=0).expand(lead + table.shape)
+    sel_flat_idx = torch.gather(cells, -1, local_idx).reshape(lead + (-1,))
     x = (sel_flat_idx % spec.w).to(flow.dtype)
     y = (sel_flat_idx // spec.w).to(flow.dtype)
     kp1 = torch.stack([x, y], dim=-1)
-    kp2 = kp1 + flow.reshape(-1, 2)[sel_flat_idx]
-    return kp1, kp2, sel_valid.reshape(-1)
+    kp2 = kp1 + pick(flow.reshape(lead + (-1, 2)), sel_flat_idx, len(lead))
+    return kp1, kp2, sel_valid.reshape(lead + (-1,))
 
 
 def local_bestN(spec, flow, flow_diff, thre=0.1, score_method="flow",
@@ -131,17 +136,18 @@ def local_bestN(spec, flow, flow_diff, thre=0.1, score_method="flow",
 
     Args:
         spec: KPSelectionSpec (cell table, N).
-        flow: [H x W x 2] forward flow (ref view -> cur view).
-        flow_diff: [H x W] forward-backward flow inconsistency.
+        flow: [... x H x W x 2] forward flow (ref view -> cur view), with
+            optional leading frame axes.
+        flow_diff: [... x H x W] forward-backward flow inconsistency.
         thre: flow-consistency threshold.
         score_method: 'flow' | 'flow_ratio'.
         depth_diff: optional [H x W] depth inconsistency; selections then
             also require depth_diff < depth_diff_thre.
 
     Returns:
-        dict with ``kp1`` [N x 2], ``kp2`` [N x 2], ``valid`` [N],
-        ``good_kp_found`` (0-d bool: both insufficient-keypoint checks) and
-        ``fb_flow_mask`` [H x W].
+        dict with ``kp1`` [... x N x 2], ``kp2`` [... x N x 2], ``valid``
+        [... x N], ``good_kp_found`` ([...] bool: both insufficient-keypoint
+        checks) and ``fb_flow_mask`` [... x H x W].
     """
     table = spec.table_on(flow.device)
     cells = functools.partial(
@@ -167,9 +173,9 @@ def local_bestN(spec, flow, flow_diff, thre=0.1, score_method="flow",
     kp1, kp2, valid = _kp_outputs(spec, flow, table, local_idx, sel_valid)
 
     # insufficient-keypoint case 1: too few sub-threshold pixels overall
-    enough_pixels = torch.sum(flow_diff < thre) >= spec.num_bestN * 0.1
+    enough_pixels = torch.sum(flow_diff < thre, dim=(-2, -1)) >= spec.num_bestN * 0.1
     # case 2: too few regions contribute any keypoint
-    good_regions = torch.sum(torch.any(sel_valid, dim=1))
+    good_regions = torch.sum(torch.any(sel_valid, dim=-1), dim=-1)
     diverse = good_regions >= spec.num_row * spec.num_col * 0.1
 
     fb_mask = (

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.headconv import head_conv
+from ..utils.device import upload
 
 
 def to_nchw(x):
@@ -88,7 +89,7 @@ class HeadConv(nn.Module):
 def _reflect_index(n, device):
     """Source indices of a 1-pixel reflect pad of n: 1, 0, 1, ..., n-1, n-2."""
     idx = np.concatenate([[1], np.arange(n), [n - 2]])
-    return torch.as_tensor(idx, device=device)
+    return upload(idx, device)
 
 
 def reflect_pad1_nhwc(x):
@@ -155,10 +156,7 @@ def _interp_matrix(src, dst, align_corners):
 
 @functools.lru_cache(maxsize=None)
 def _interp_tensor(src, dst, align_corners, dtype, device):
-    return torch.as_tensor(
-        _interp_matrix(src, dst, align_corners).copy(), dtype=dtype,
-        device=device,
-    )
+    return upload(_interp_matrix(src, dst, align_corners).copy(), device, dtype)
 
 
 def resize_bilinear(x, out_h, out_w, align_corners=False):

@@ -263,9 +263,9 @@ class LiteFlowNet(nn.Module):
         ids2 = None
         if pair_mode == "consecutive":
             m = img1.shape[0]
-            ids2 = torch.cat(
-                [torch.arange(1, m), torch.arange(0, m - 1)]
-            ).to(img1.device)
+            # built on the device: a host tensor's upload would synchronise
+            ids2 = torch.cat([torch.arange(1, m, device=img1.device),
+                              torch.arange(0, m - 1, device=img1.device)])
             feats_all = self.moduleFeatures(img1)
             feats1 = [_pair_refs(f) for f in feats_all]
             feats2 = feats_all  # unique frames; warps map via ids2

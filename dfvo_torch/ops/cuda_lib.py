@@ -151,6 +151,17 @@ def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def forbid_grad(name, *tensors):
+    """Raise when autograd is recording and an input requires grad: the
+    kernels have no backward yet, and their outputs carry no ``grad_fn``,
+    so a caller's gradient would be dropped without an error."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass (ROADMAP queue 2); "
+            "call it under torch.no_grad() or with inputs that do not require grad"
+        )
+
+
 def require_cuda(name, *tensors):
     """Raise unless every tensor is on one CUDA device."""
     devs = {t.device for t in tensors}

@@ -57,6 +57,7 @@ def head_conv_cuda(x, kernel, bias=None, prepadded=False):
     tensor-core variant reads ``kernel`` (any strides, e.g. the permuted
     OIHW parameter) and ``bias`` as they are when their dtype is x's."""
     tensors = (x, kernel) if bias is None else (x, kernel, bias)
+    cuda_lib.forbid_grad("head_conv", *tensors)
     cuda_lib.require_cuda("head_conv", *tensors)
     if x.dim() != 4 or kernel.dim() != 4:
         raise ValueError("head_conv: x must be NHWC and kernel [k,k,Cin,Cout]")

@@ -54,6 +54,7 @@ def correlation_cuda(f1, f2, max_disp=3, stride=1):
     contiguous channels (any N/H/W strides), D in {3, 4}, C <= 1536. Raises
     for anything else. Output has the input dtype.
     """
+    cuda_lib.forbid_grad("correlation", f1, f2)
     cuda_lib.require_cuda("correlation", f1, f2)
     if f1.shape != f2.shape or f1.dim() != 4 or f1.dtype != f2.dtype:
         raise ValueError(

@@ -76,8 +76,10 @@ def reg_dist_filter_cuda(raw, flow, wx, bx, wy, by, k):
     (float32 or bfloat16) in NHWC-contiguous memory, k in {3, 5, 7}, and the
     four parameter tensors as they are (contiguous, one dtype, float32 or
     bfloat16, read in place). Raises ValueError for anything else, before
-    the device is looked at.
+    the device is looked at, and RuntimeError when autograd would need a
+    gradient of the output.
     """
+    cuda_lib.forbid_grad("reg_dist_filter", raw, flow, wx, bx, wy, by)
     if raw.dim() != 4 or k not in (3, 5, 7) or raw.shape[3] != k * k:
         raise ValueError(f"reg_dist_filter: k must be 3, 5 or 7 and raw [N,H,W,k²] must "
                          f"have k² taps, got k={k}, raw {tuple(raw.shape)}")

@@ -1,17 +1,21 @@
 """DF-VO's frame loop: the ``DFVO`` class and its per-frame step.
 
-Counterpart of ``dfvo_tpu/pipeline/dfvo.py`` in its default frame
-execution. The step functions are its ``depth_only`` closure (the first
-frame's depth), its ``full_step`` closure (here :func:`frame_step`: uint8
-images -> ``DeepFrontend.infer`` -> ``tracking_step``) and the pose
-chaining of ``DFVO.update_global_pose``. :class:`DFVO` runs them over a
+Counterpart of ``dfvo_tpu/pipeline/dfvo.py``, in both of its executions:
+the default frame execution and, with ``tpu.execution: scan``, the chunked
+one of ``pipeline/scan_runner.py`` (:meth:`DFVO._main_scan`). The step
+functions are its ``depth_only`` closure (the first frame's depth), its
+``full_step`` closure (here :func:`frame_step`: uint8 images ->
+``DeepFrontend.infer`` -> ``tracking_step``) and the pose chaining of
+``DFVO.update_global_pose``. :class:`DFVO` runs them over a
 dataset: frames decoded ahead by a prefetcher, the scale and the previous
 motion carried on the device, the global trajectory chained on the host,
 the optional drawer, and the trajectory file.
 
 Per tracked frame the loop reads the device twice: the PnP decision inside
 ``tracking_step`` and the relative pose. The drawer, when it is on, adds
-one batched download of what it draws (the tracking mode included).
+one batched download of what it draws (the tracking mode included). The
+scan execution reads the device twice per chunk: the chunk's decision
+tensors and its poses.
 """
 
 import os
@@ -22,10 +26,11 @@ import torch
 from ..datasets import datasets as dataset_registry
 from ..geometry.camera import SE3
 from ..utils import prng
+from ..utils.device import upload
 from ..utils.io import mkdir_if_not_exists
 from ..utils.timer import Timer
 from .frontend import DeepFrontend
-from .tracking import _ITEM5, _ITEM9, TrackingConfig, tracking_step
+from .tracking import _ITEM9, TrackingConfig, tracking_step
 
 _MODE_NAMES = {0: "Const.", 1: "Ess. Mat.", 2: "PnP", 3: "DeepPose"}
 _ITEM8 = "ROADMAP queue 1 item 8, 'Online finetuning'"
@@ -106,12 +111,22 @@ def next_prev_scale(scale, prev_scale):
 
 
 def _check_ported(cfg):
-    """Raise for the options of the JAX frame loop not ported yet."""
+    """Raise for the options of the JAX frame loop not ported yet, and for
+    the options that the scan execution refuses in both packages."""
     execution = str(cfg.tpu.get("execution", "frame"))
     if execution not in ("frame", "scan"):
         raise ValueError(f"tpu.execution must be 'frame' or 'scan', got {execution!r}")
+    if execution == "scan":
+        unsupported = [what for on, what in (
+            (str(cfg.tracking_method) == "deep_pose", "tracking_method: deep_pose"),
+            (cfg.depth.get("depth_src") == "gt", "depth_src: gt"),
+            (bool(cfg.deep_pose.enable), "deep_pose.enable"),
+        ) if on]
+        if unsupported:
+            raise ValueError(
+                "tpu.execution: scan does not support " + ", ".join(unsupported)
+                + " (these need per-frame host state; use tpu.execution: frame)")
     unported = (
-        (execution == "scan", "tpu.execution: scan", _ITEM5),
         (bool(cfg.online_finetune.enable), "online_finetune.enable", _ITEM8),
         (bool(cfg.deep_pose.enable), "deep_pose.enable", _ITEM9),
         (str(cfg.tracking_method) == "deep_pose", "tracking_method: deep_pose", _ITEM9),
@@ -176,14 +191,8 @@ class DFVO:
             self.drawer = FrameDrawer(self.cfg)
 
     def _upload(self, arr, dtype=None):
-        """A host array on the device without a host synchronisation (pinned
-        staging, copied on the current stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if dtype is not None:
-            t = t.to(dtype)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        """A host array on the device without a host synchronisation."""
+        return upload(arr, self.device, dtype)
 
     def _download(self, out, keys):
         """Several device tensors on the host after one synchronisation."""
@@ -274,26 +283,36 @@ class DFVO:
         self.tracking_stage += 1
         return mode
 
-    def main(self, start_frame=0, num_frames=None):
-        """Run the sequence from ``start_frame`` (``num_frames`` of it, or
-        to its end), then save the results."""
-        from ..utils.native_loader import make_prefetcher
-
-        print("==> Start DF-VO")
-        print(f"==> Running sequence: {self.cfg.seq}")
+    def _frame_ids(self, start_frame, num_frames):
         end = len(self.dataset)
         if num_frames is not None:
             end = min(end, start_frame + num_frames)
-        frame_ids = list(range(start_frame, end, self.cfg.frame_step))
+        return list(range(start_frame, end, self.cfg.frame_step))
 
-        # decode ahead of the tracker
-        prefetcher = None
+    def _prefetcher(self, frame_ids):
+        """A prefetcher decoding ``frame_ids`` ahead of the tracker (None
+        when the dataset loads its own images)."""
+        from ..utils.native_loader import make_prefetcher
+
         self.loader = "dataset"
-        if hasattr(self.dataset, "get_image_path") and frame_ids:
-            paths = [self.dataset.get_image_path(self.dataset.get_timestamp(i))
-                     for i in frame_ids]
-            prefetcher = make_prefetcher(paths, self.cfg.image.height, self.cfg.image.width)
-            self.loader = prefetcher.name
+        if not (hasattr(self.dataset, "get_image_path") and frame_ids):
+            return None
+        paths = [self.dataset.get_image_path(self.dataset.get_timestamp(i)) for i in frame_ids]
+        prefetcher = make_prefetcher(paths, self.cfg.image.height, self.cfg.image.width)
+        self.loader = prefetcher.name
+        return prefetcher
+
+    def main(self, start_frame=0, num_frames=None):
+        """Run the sequence from ``start_frame`` (``num_frames`` of it, or
+        to its end), then save the results. ``tpu.execution`` selects the
+        loop: ``frame`` (one step per frame) or ``scan`` (chunks of
+        ``tpu.scan_chunk`` frames, :meth:`_main_scan`)."""
+        if str(self.cfg.tpu.get("execution", "frame")) == "scan":
+            return self._main_scan(start_frame, num_frames)
+        print("==> Start DF-VO")
+        print(f"==> Running sequence: {self.cfg.seq}")
+        frame_ids = self._frame_ids(start_frame, num_frames)
+        prefetcher = self._prefetcher(frame_ids)
         try:
             for n, img_id in enumerate(frame_ids, 1):
                 self.timers.start("DF-VO")
@@ -306,6 +325,83 @@ class DFVO:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+        print("=> Finish!")
+        return self.save_results()
+
+    def _main_scan(self, start_frame=0, num_frames=None):
+        """The chunked loop: T = ``tpu.scan_chunk`` frames per
+        ``chunk_step`` (one batched network call and one batched tracking
+        pass), uploaded from pinned memory with their keys, and one
+        [T x 4 x 4] pose download per chunk, chained on the host. The last
+        chunk is padded with its last frame, whose key it repeats. As in
+        the JAX package, the trajectory starts at the GT's first pose when
+        a GT is configured (the frame execution starts at the identity),
+        and the drawer draws the trajectory map only."""
+        from .scan_runner import ScanRunner
+
+        print("==> Start DF-VO (scan execution)")
+        print(f"==> Running sequence: {self.cfg.seq}")
+        runner = ScanRunner(self.cfg, frontend=self.frontend)
+        chunk = runner.chunk
+        frame_ids = self._frame_ids(start_frame, num_frames)
+        if not frame_ids:
+            print("=> Finish!")
+            return self.save_results()
+        prefetcher = self._prefetcher(frame_ids)
+
+        def load(i):
+            if prefetcher is not None:
+                return prefetcher.next()[1]
+            return self.dataset.get_image(self.dataset.get_timestamp(i))
+
+        try:
+            first = frame_ids[0]
+            if self.cfg.directory.gt_pose_dir is not None:
+                pose0 = SE3(self.dataset.gt_poses[min(self.dataset.gt_poses)])
+            else:
+                pose0 = SE3()
+            self.global_poses = {first: pose0.copy()}
+            self.cur_data["id"] = first
+            img0 = load(first)
+            with self.timers.scope("depth_cnn", "DF-VO"):
+                carry = runner.initial_carry(self.infer_variables, self._upload(img0))
+
+            rest = frame_ids[1:]
+            h, w = self.cfg.image.height, self.cfg.image.width
+            for c0 in range(0, len(rest), chunk):
+                self.timers.start("DF-VO")
+                ids = rest[c0 : c0 + chunk]
+                with self.timers.scope("data_loading", "DF-VO"):
+                    imgs = np.empty((chunk, h, w, 3), np.uint8)
+                    for j, i in enumerate(ids):
+                        imgs[j] = load(i)
+                    imgs[len(ids):] = imgs[len(ids) - 1]  # a fixed chunk shape
+                    # keys fold the true frame ids, so both executions draw
+                    # the same RANSAC samples
+                    id_pad = ids + [ids[-1]] * (chunk - len(ids))
+                    keys = prng.chunk_keys(self.cfg.seed, id_pad).astype(np.int64)
+                    imgs_dev, keys_dev = self._upload(imgs), self._upload(keys)
+                with self.timers.scope("vo_step", "DF-VO"):
+                    poses, _, carry = runner._chunk_step(
+                        self.infer_variables, imgs_dev, carry, keys_dev, self.K, self.K_inv)
+                    rel = poses.to("cpu", torch.float64).numpy()[: len(ids)]
+                prev = self.global_poses[frame_ids[c0]].pose
+                for j, i in enumerate(ids):
+                    prev = prev @ rel[j]
+                    self.global_poses[i] = SE3(prev)
+                if self.drawer is not None:
+                    with self.timers.scope("visualization", "DF-VO"):
+                        for i in ids:
+                            self.cur_data["id"] = i
+                            self.drawer.draw_traj(self)
+                self.timers.end("DF-VO")
+                done = c0 + len(ids) + 1
+                if done // PROGRESS_EVERY > (c0 + 1) // PROGRESS_EVERY or done == len(frame_ids):
+                    print(f"==> frame {done}/{len(frame_ids)}, {done - 1} tracked")
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        self.tracking_stage = len(frame_ids)
         print("=> Finish!")
         return self.save_results()
 

@@ -10,14 +10,19 @@ Counterpart of ``dfvo_tpu/pipeline/tracking.py``: the reference's per-frame
 The JAX package pays for the PnP fallback only on frames that need it
 (``lax.cond``). Here the step reads that decision on the host once per
 call: ``need_pnp`` is the step's one host synchronisation (none with
-``force_e_path``).
+``force_e_path`` or ``defer_pnp``).
+
+Every function takes leading frame axes where the JAX package ``vmap``s
+over a chunk's frames: :func:`tracking_step_chunk` is the scan runner's
+``jax.vmap`` of the deferred step, one kernel per op for the whole chunk,
+and :func:`pnp_fallback` runs over the frames that the chunk sends it.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: iterative scale, iterative keypoints and depth consistency (item 9),
-the ``bestN`` and ``sampled`` keypoint selectors (item 7), and
-``defer_pnp`` (item 5, the scan runner).
+item: iterative scale, iterative keypoints and depth consistency (item 9)
+and the ``bestN`` and ``sampled`` keypoint selectors (item 7).
 """
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -34,7 +39,6 @@ TRACK_MODE_CONST = 0
 TRACK_MODE_ESSENTIAL = 1
 TRACK_MODE_PNP = 2
 
-_ITEM5 = "ROADMAP queue 1 item 5, 'Scan runner'"
 _ITEM7 = "ROADMAP queue 1 item 7, 'The rest of matching'"
 _ITEM9 = "ROADMAP queue 1 item 9, 'Deep pose and the optional keypoint filters'"
 
@@ -97,7 +101,9 @@ class TrackingConfig:
     num_hypotheses: int = 256
     # no PnP branch: an E failure falls back to constant motion
     force_e_path: bool = False
-    # batch mode of the scan runner (not ported)
+    # batch mode of the scan runner: no PnP in the step; it returns the
+    # placeholder pose prev_motion and need_pnp, and the chunk runs one
+    # batched fallback for the frames that need it
     defer_pnp: bool = False
     # compute the pose-induced rigid-flow-diff map (drawer tile)
     want_rigid_flow_diff: bool = True
@@ -215,7 +221,6 @@ def _check_ported(tcfg):
         (tcfg.pnp_iterative_kp, "pnp_tracker.iterative_kp", _ITEM9),
         (tcfg.depth_consistency, "kp_selection.depth_consistency", _ITEM9),
         (tcfg.kp_method in ("bestN", "sampled"), f"kp_selection.{tcfg.kp_method}", _ITEM7),
-        (tcfg.defer_pnp, "defer_pnp", _ITEM5),
     )
     for on, what, item in unported:
         if on:
@@ -225,9 +230,10 @@ def _check_ported(tcfg):
 
 
 def preprocess_depth_device(depth, crop, depth_range):
-    """Crop and range clipping of a depth map (zeros outside)."""
+    """Crop and range clipping of depth maps [... x H x W] (zeros
+    outside)."""
     min_depth, max_depth = depth_range
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     y0, y1 = int(h * crop[0][0]), int(h * crop[0][1])
     x0, x1 = int(w * crop[1][0]), int(w * crop[1][1])
     ys = torch.arange(h, device=depth.device)[:, None]
@@ -262,15 +268,23 @@ def _scalar(x, like):
     return torch.full((), float(x), dtype=torch.float32, device=like.device)
 
 
+def _split_keys(rng):
+    """The eight stage keys of a step: ``split(rng, 8)`` of a host key, or
+    the frames' split keys [... x 8 x 2] as given (a device tensor,
+    ``prng.chunk_keys``)."""
+    return rng if isinstance(rng, torch.Tensor) else prng.split(rng, 8)
+
+
 def pnp_fallback(rng, kp_ref, kp_cur, valid, depth_ref, flow_fwd, flow_diff,
                  depth_ref_raw, K, K_inv, tcfg):
     """The PnP fallback branch; its key is key 5 of ``split(rng, 8)``, as
-    in ``tracking_step``."""
+    in ``tracking_step``. Over leading frame axes, ``rng`` holds each
+    frame's split keys [... x 8 x 2]."""
     if tcfg.pnp_iterative_kp:
         raise NotImplementedError(f"pnp_tracker.iterative_kp is not ported yet ({_ITEM9})")
-    keys = prng.split(rng, 8)
+    keys = _split_keys(rng)
     return compute_pose_3d2d(
-        keys[5], kp_ref, kp_cur, valid, depth_ref, K, K_inv,
+        keys[..., 5, :], kp_ref, kp_cur, valid, depth_ref, K, K_inv,
         min_depth=tcfg.min_depth, max_depth=tcfg.max_depth,
         reproj_thre=tcfg.pnp_reproj_thre, repeats=tcfg.pnp_repeat,
         num_hypotheses=tcfg.pnp_iter,
@@ -283,20 +297,24 @@ def tracking_step(rng, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, prev_m
     """One evaluation of the tracking decision tree.
 
     Args:
-        rng: PRNG key (two uint32 words, utils/prng.py).
-        flow_fwd: [H x W x 2] flow ref -> cur.
-        flow_diff: [H x W] forward-backward flow inconsistency.
-        depth_cur_raw, depth_ref_raw: [H x W] raw CNN depths.
-        prev_motion: [4 x 4] previous relative pose (constant-motion model).
+        rng: PRNG key (two uint32 words, utils/prng.py), or each frame's
+            split keys [... x 8 x 2] as an int64 device tensor.
+        flow_fwd: [... x H x W x 2] flow ref -> cur, with optional leading
+            frame axes.
+        flow_diff: [... x H x W] forward-backward flow inconsistency.
+        depth_cur_raw, depth_ref_raw: [... x H x W] raw CNN depths.
+        prev_motion: [... x 4 x 4] previous relative pose (constant-motion
+            model).
         K, K_inv: [3 x 3] intrinsics, float32, on the inputs' device.
         tcfg: TrackingConfig.
         prev_scale: previous frame's scale (number or 0-d tensor).
         deep_pose: the pose CNN's prediction (not ported: must be None).
 
     Returns:
-        dict with ``pose`` [4x4] relative pose (cur -> ref), ``mode``
-        (0 const / 1 essential / 2 pnp), ``good_kp_found``, ``scale``,
-        keypoints, inliers and the maps the drawer reads.
+        dict with ``pose`` [... x 4 x 4] relative pose (cur -> ref),
+        ``mode`` (0 const / 1 essential / 2 pnp), ``good_kp_found``,
+        ``scale``, keypoints, inliers, the maps the drawer reads, and
+        ``need_pnp`` and ``depth_ref`` for a deferred fallback.
     """
     _check_ported(tcfg)
     if deep_pose is not None:
@@ -307,29 +325,29 @@ def tracking_step(rng, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, prev_m
 
     kp = _select_keypoints(tcfg, flow_fwd, flow_diff)
     kp_ref, kp_cur, valid = kp["kp1"], kp["kp2"], kp["valid"]
-    keys = prng.split(rng, 8)
+    keys = _split_keys(rng)
     eye4 = torch.eye(4, dtype=torch.float32, device=flow_fwd.device)
 
     if tcfg.tracking_method == "PnP":
         # PnP every frame: E_pose stays identity, so every good-kp frame
         # takes the PnP branch
-        n = kp_ref.shape[0]
-        e_out = {"inliers": torch.zeros(n, dtype=torch.bool, device=flow_fwd.device)}
-        scale = torch.full((), -1.0, device=flow_fwd.device)
-        e_success = torch.zeros((), dtype=torch.bool, device=flow_fwd.device)
+        lead = valid.shape[:-1]
+        e_out = {"inliers": torch.zeros_like(valid)}
+        scale = torch.full(lead, -1.0, device=flow_fwd.device)
+        e_success = torch.zeros(lead, dtype=torch.bool, device=flow_fwd.device)
         return _finish_tracking_step(
             rng, tcfg, kp, e_out, e_success, eye4, scale, prev_motion, depth_ref,
             depth_cur, depth_ref_raw, flow_fwd, flow_diff, K, K_inv)
 
     e_out = compute_pose_2d2d(
-        keys[0], kp_cur, kp_ref, valid, K, K_inv,
+        keys[..., 0, :], kp_cur, kp_ref, valid, K, K_inv,
         reproj_thre=tcfg.e_reproj_thre, repeats=tcfg.e_repeat,
         num_hypotheses=tcfg.num_hypotheses, validity_method=tcfg.validity_method,
         validity_thre=tcfg.validity_thre,
     )
     T_e = make_se3(e_out["R"], e_out["t"])  # cur -> ref, unit translation
     scale = find_scale_from_depth(
-        keys[1], kp_ref, kp_cur, valid, se3_inverse(T_e), depth_cur, K_inv,
+        keys[..., 1, :], kp_ref, kp_cur, valid, se3_inverse(T_e), depth_cur, K_inv,
         ransac_thre=tcfg.scale_ransac_thre, max_trials=tcfg.scale_max_trials,
         min_samples=tcfg.scale_min_samples,
     )["scale"]
@@ -346,7 +364,7 @@ def tracking_step(rng, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, prev_m
 
     e_success = e_out["valid"] & (scale != -1.0)
     pose_e = T_e.clone()
-    pose_e[:3, 3] = pose_e[:3, 3] * scale
+    pose_e[..., :3, 3] = pose_e[..., :3, 3] * scale[..., None]
     return _finish_tracking_step(
         rng, tcfg, kp, e_out, e_success, pose_e, scale, prev_motion, depth_ref,
         depth_cur, depth_ref_raw, flow_fwd, flow_diff, K, K_inv)
@@ -360,21 +378,23 @@ def _finish_tracking_step(rng, tcfg, kp, e_out, e_success, pose_e, scale, prev_m
     kp_ref, kp_cur, valid = kp["kp1"], kp["kp2"], kp["valid"]
     good = kp["good_kp_found"]
     need_pnp = good & ~e_success
-    n = kp_ref.shape[0]
-    skip = {"T": prev_motion if tcfg.force_e_path else torch.eye(4, dtype=pose_e.dtype,
-                                                                 device=pose_e.device),
-            "inliers": torch.zeros(n, dtype=torch.bool, device=kp_ref.device)}
+    placeholder = tcfg.force_e_path or tcfg.defer_pnp
+    skip = {"T": prev_motion if placeholder else torch.eye(4, dtype=pose_e.dtype,
+                                                           device=pose_e.device),
+            "inliers": torch.zeros_like(valid)}
     if tcfg.force_e_path:
         need_pnp = torch.zeros_like(need_pnp)
         pnp_out = skip
-    elif bool(need_pnp):  # the step's one host synchronisation
+    elif tcfg.defer_pnp:  # the chunk runs the fallback (scan_runner.py)
+        pnp_out = skip
+    elif bool(need_pnp.any()):  # the step's one host synchronisation
         pnp_out = pnp_fallback(rng, kp_ref, kp_cur, valid, depth_ref, flow_fwd, flow_diff,
                                depth_ref_raw, K, K_inv, tcfg)
     else:
         pnp_out = skip
 
-    pose = torch.where(e_success, pose_e, pnp_out["T"])
-    pose = torch.where(good, pose, prev_motion)
+    pose = torch.where(e_success[..., None, None], pose_e, pnp_out["T"])
+    pose = torch.where(good[..., None, None], pose, prev_motion)
     fallback_mode = TRACK_MODE_CONST if tcfg.force_e_path else TRACK_MODE_PNP
     mode = torch.where(
         good,
@@ -382,8 +402,11 @@ def _finish_tracking_step(rng, tcfg, kp, e_out, e_success, pose_e, scale, prev_m
         TRACK_MODE_CONST,
     )
     if tcfg.want_rigid_flow_diff:
-        rflow = rigid_flow(depth_ref_raw[None], se3_inverse(pose)[None], K, K_inv)[0]
-        rigid_flow_diff = torch.linalg.vector_norm(rflow - flow_fwd, dim=-1)
+        h, w = depth_ref_raw.shape[-2:]
+        rflow = rigid_flow(depth_ref_raw.reshape(-1, h, w),
+                           se3_inverse(pose).reshape(-1, 4, 4), K, K_inv)
+        rigid_flow_diff = torch.linalg.vector_norm(rflow.reshape(flow_fwd.shape) - flow_fwd,
+                                                   dim=-1)
     else:
         rigid_flow_diff = torch.zeros_like(flow_diff)
     return {
@@ -394,10 +417,38 @@ def _finish_tracking_step(rng, tcfg, kp, e_out, e_success, pose_e, scale, prev_m
         "kp_ref": kp_ref,
         "kp_cur": kp_cur,
         "kp_valid": valid,
-        "inliers": torch.where(e_success, e_out["inliers"], pnp_out["inliers"]),
+        "inliers": torch.where(e_success[..., None], e_out["inliers"], pnp_out["inliers"]),
         "fb_flow_mask": kp.get("fb_flow_mask", flow_diff),
         "rigid_flow_diff": rigid_flow_diff,
         "depth_cur": depth_cur,
         "need_pnp": need_pnp,
         "depth_ref": depth_ref,
     }
+
+
+def tracking_step_chunk(keys, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, K, K_inv,
+                        tcfg):
+    """The scan runner's batched step: ``jax.vmap`` of the step over a
+    chunk's frames in the JAX package (``scan_runner.py``), here one call
+    over a leading frame axis.
+
+    Each frame gets a dummy previous motion (the identity) and previous
+    scale (1.0) and no scale-jump guard: the chunk's fix-up passes put in
+    the constant-motion poses and apply the guard with the true running
+    scale. The PnP fallback is deferred (placeholder pose and
+    ``need_pnp``) unless ``force_e_path`` drops it, so the call reads
+    nothing on the host. The drawer's rigid-flow map is not computed.
+
+    Args:
+        keys: [T x 8 x 2] int64 split keys on the device
+            (``prng.chunk_keys``).
+        flow_fwd: [T x H x W x 2]; flow_diff, depth_cur_raw,
+            depth_ref_raw: [T x H x W].
+        K, K_inv: [3 x 3] intrinsics.
+        tcfg: the TrackingConfig of the frame execution.
+    """
+    tcfg_v = dataclasses.replace(tcfg, defer_pnp=not tcfg.force_e_path,
+                                 scale_jump_guard=0.0, want_rigid_flow_diff=False)
+    eye = torch.eye(4, dtype=torch.float32, device=flow_fwd.device)
+    return tracking_step(keys, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, eye, K,
+                         K_inv, tcfg_v, prev_scale=1.0)

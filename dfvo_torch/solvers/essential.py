@@ -56,9 +56,9 @@ def essential_from_sample(x1, x2, weights=None, project=True, iters=10):
 @highp
 def sampson_error(F, p1, p2):
     """Squared Sampson distances [... x N] of homogeneous pixel
-    correspondences p1, p2 [N x 3] under fundamental matrices
-    F [... x 3 x 3] (p2^T F p1 = 0), written component-wise as in the JAX
-    package."""
+    correspondences p1, p2 [... x N x 3] under fundamental matrices
+    F [... x 3 x 3] (p2^T F p1 = 0; the points' leading axes broadcast
+    against F's), written component-wise as in the JAX package."""
     x1, y1, z1 = p1[..., 0], p1[..., 1], p1[..., 2]
     x2, y2, z2 = p2[..., 0], p2[..., 1], p2[..., 2]
     f = [[F[..., i, j, None] for j in range(3)] for i in range(3)]
@@ -95,7 +95,8 @@ def two_view_depths(R, t, x1, x2):
 
     Args:
         R: [... x 3 x 3], t: [... x 3].
-        x1, x2: [N x 3] homogeneous normalised coordinates.
+        x1, x2: [... x N x 3] homogeneous normalised coordinates (their
+            leading axes broadcast against R's).
 
     Returns:
         (z1, z2), each [... x N].
@@ -121,13 +122,14 @@ def cheirality_count(R, t, x1, x2, mask, max_depth=50.0):
 @highp
 def recover_pose(E, kp1, kp2, K_inv, inlier_mask):
     """The (R, t) candidate of each E [... x 3 x 3] with the most inliers
-    ([... x N] mask) in front of both cameras.
+    ([... x N] mask) in front of both cameras, for pixel correspondences
+    [... x N x 2] whose leading axes broadcast against E's.
 
     Returns:
         (R [... x 3 x 3], t [... x 3], cheirality count [...]).
     """
-    x1 = _normalize(kp1, K_inv)
-    x2 = _normalize(kp2, K_inv)
+    x1 = _normalize(kp1, K_inv)[..., None, :, :]  # against the 4 candidates
+    x2 = _normalize(kp2, K_inv)[..., None, :, :]
     Rs, ts = decompose_essential(E)
     counts = cheirality_count(Rs, ts, x1, x2, inlier_mask[..., None, :])
     best = torch.argmax(counts, dim=-1, keepdim=True)
@@ -163,9 +165,9 @@ def _gn_polish_pose(R0, t0, x1, x2, weights, iters=5):
     form: dR = [e_k]x R, and d(t/|t|) = b_j/|t| - t (t.b_j)/|t|^3.
 
     Args:
-        R0: [S x 3 x 3], t0: [S x 3] (unit).
-        x1, x2: [N x 3] normalised coordinates.
-        weights: [S x N].
+        R0: [... x S x 3 x 3], t0: [... x S x 3] (unit).
+        x1, x2: [... x 1 x N x 3] normalised coordinates.
+        weights: [... x S x N].
     """
     eye = torch.eye(3, dtype=x1.dtype, device=x1.device)
     gens = skew(eye)  # [3 x 3 x 3]: [e_k]x
@@ -187,7 +189,8 @@ def _gn_polish_pose(R0, t0, x1, x2, weights, iters=5):
                for b in (b1, b2)]
         dE_t = skew(torch.stack(dtn, dim=-2)) @ R[..., None, :, :]
         dE = torch.cat([dE_rot, dE_t], dim=-3)
-        dEx1, dEtx2, dnum = _epipolar_terms(dE, x1, x2)  # [S x 5 x N (x 3)]
+        dEx1, dEtx2, dnum = _epipolar_terms(dE, x1[..., None, :, :],
+                                            x2[..., None, :, :])  # [S x 5 x N (x 3)]
         dden = 2.0 * (Ex1[..., None, :, 0] * dEx1[..., 0] + Ex1[..., None, :, 1] * dEx1[..., 1]
                       + Etx2[..., None, :, 0] * dEtx2[..., 0]
                       + Etx2[..., None, :, 1] * dEtx2[..., 1])
@@ -230,32 +233,37 @@ def find_essential_ransac(
     4. return the start with the best final score.
 
     Args:
-        rng: PRNG key (two uint32 words).
-        kp1, kp2: [N x 2] pixel correspondences (cur, ref).
+        rng: PRNG key (two uint32 words), or [... x 2] key words per frame.
+        kp1, kp2: [... x N x 2] pixel correspondences (cur, ref), with
+            optional leading frame axes.
         K, K_inv: [3 x 3] intrinsics and inverse.
-        valid_mask: [N] bool.
+        valid_mask: [... x N] bool.
         threshold: inlier threshold in pixels on the Sampson distance.
         num_hypotheses, num_starts, vote_slices: static sizes; the best
             unpolished model of each of ``vote_slices`` disjoint hypothesis
             subsets is returned as ``slice_Es`` for the tracker's votes.
 
     Returns:
-        dict with ``E``, ``R`` [3x3], ``t`` [3] (unit), ``inliers`` [N],
-        ``inlier_cnt``, ``cheirality_cnt``, ``slice_Es`` [S x 3 x 3],
-        ``slice_cnts`` [S].
+        dict with ``E``, ``R`` [... x 3 x 3], ``t`` [... x 3] (unit),
+        ``inliers`` [... x N], ``inlier_cnt``, ``cheirality_cnt``,
+        ``slice_Es`` [... x S x 3 x 3], ``slice_cnts`` [... x S].
     """
+    nb = valid_mask.dim() - 1
     x1 = _normalize(kp1, K_inv)
     x2 = _normalize(kp2, K_inv)
-    p1 = _homogeneous(kp1)
-    p2 = _homogeneous(kp2)
+    # the points against a model axis
+    x1m, x2m = x1[..., None, :, :], x2[..., None, :, :]
+    p1 = _homogeneous(kp1)[..., None, :, :]
+    p2 = _homogeneous(kp2)[..., None, :, :]
     thr2 = threshold ** 2
-    vmask = valid_mask.to(x1.dtype)
-    r_norm = thr2 * (torch.sum(valid_mask).to(torch.float32) + 1.0)
+    vmask = valid_mask.to(x1.dtype)[..., None, :]
+    vm = valid_mask[..., None, :]
+    r_norm = thr2 * (torch.sum(valid_mask, dim=-1).to(torch.float32) + 1.0)[..., None]
 
     def score(E):
-        """(inlier masks, combined scores) of models E [... x 3 x 3]."""
+        """(inlier masks, combined scores) of models E [... x S x 3 x 3]."""
         err = sampson_error(K_inv.T @ E @ K_inv, p1, p2)
-        mask = (err < thr2) & valid_mask
+        mask = (err < thr2) & vm
         rsum = torch.sum(torch.clamp(err, max=thr2) * vmask, dim=-1)
         return mask, torch.sum(mask, dim=-1).to(torch.float32) - rsum / r_norm
 
@@ -264,42 +272,44 @@ def find_essential_ransac(
     Es = essential_from_sample(samp[..., :3], samp[..., 3:], project=False, iters=6)
     inliers, fscores = score(Es)
     counts = torch.sum(inliers, dim=-1)
-    top = torch.sort(fscores, descending=True, stable=True).indices[:num_starts]
+    top = torch.sort(fscores, descending=True, stable=True).indices[..., :num_starts]
 
     # multi-start polish, batched over the starts
-    best_E, best_fs, best_inl = Es[top], fscores[top], inliers[top]
+    best_E, best_inl = pick(Es, top, nb), pick(inliers, top, nb)
+    best_fs = torch.gather(fscores, -1, top)
     cur = best_inl
     for _ in range(2):
-        E = essential_from_sample(x1, x2, weights=cur.to(x1.dtype))
+        E = essential_from_sample(x1m, x2m, weights=cur.to(x1.dtype))
         cur, fs = score(E)
         better = fs >= best_fs
-        best_E = torch.where(better[:, None, None], E, best_E)
+        best_E = torch.where(better[..., None, None], E, best_E)
         best_fs = torch.where(better, fs, best_fs)
-        best_inl = torch.where(better[:, None], cur, best_inl)
-    R, t, _ = recover_pose(best_E, kp1, kp2, K_inv, best_inl)
+        best_inl = torch.where(better[..., None], cur, best_inl)
+    R, t, _ = recover_pose(best_E, kp1[..., None, :, :], kp2[..., None, :, :], K_inv,
+                           best_inl)
     best_R, best_t = R, t
     cur = best_inl
     for _ in range(2):
-        R, t = _gn_polish_pose(R, t, x1, x2, cur.to(x1.dtype))
+        R, t = _gn_polish_pose(R, t, x1m, x2m, cur.to(x1.dtype))
         cur, fs = score(skew(t) @ R)
         better = fs >= best_fs
-        best_R = torch.where(better[:, None, None], R, best_R)
-        best_t = torch.where(better[:, None], t, best_t)
+        best_R = torch.where(better[..., None, None], R, best_R)
+        best_t = torch.where(better[..., None], t, best_t)
         best_fs = torch.where(better, fs, best_fs)
-        best_inl = torch.where(better[:, None], cur, best_inl)
+        best_inl = torch.where(better[..., None], cur, best_inl)
 
-    j = torch.argmax(best_fs)
-    R, t, inl = pick(best_R, j), pick(best_t, j), pick(best_inl, j)
+    j = torch.argmax(best_fs, dim=-1)
+    R, t, inl = pick(best_R, j, nb), pick(best_t, j, nb), pick(best_inl, j, nb)
     per_slice = num_hypotheses // vote_slices
-    slice_best = (torch.argmax(fscores.reshape(vote_slices, -1), dim=1)
+    slice_best = (torch.argmax(fscores.reshape(fscores.shape[:-1] + (vote_slices, -1)), dim=-1)
                   + torch.arange(vote_slices, device=x1.device) * per_slice)
     return {
         "E": skew(t) @ R,
         "R": R,
         "t": t,
         "inliers": inl,
-        "inlier_cnt": torch.sum(inl),
+        "inlier_cnt": torch.sum(inl, dim=-1),
         "cheirality_cnt": cheirality_count(R, t, x1, x2, valid_mask),
-        "slice_Es": Es[slice_best],
-        "slice_cnts": counts[slice_best],
+        "slice_Es": pick(Es, slice_best, nb),
+        "slice_cnts": torch.gather(counts, -1, slice_best),
     }

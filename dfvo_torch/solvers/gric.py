@@ -23,8 +23,8 @@ def _masked(res, mask):
 @highp
 def fundamental_residual(F, kp1, kp2, mask=None):
     """First-order geometric residual of F [... x 3 x 3] per pixel
-    correspondence [N x 2]: (x2^T F x1)^2 / (|(F x1)_xy|^2 + |(F^T x2)_xy|^2),
-    [... x N]."""
+    correspondence [... x N x 2] (leading axes broadcast against F's):
+    (x2^T F x1)^2 / (|(F x1)_xy|^2 + |(F^T x2)_xy|^2), [... x N]."""
     p1 = torch.cat([kp1, torch.ones_like(kp1[..., :1])], dim=-1)
     p2 = torch.cat([kp2, torch.ones_like(kp2[..., :1])], dim=-1)
     Fx1 = p1 @ F.transpose(-1, -2)
@@ -37,7 +37,7 @@ def fundamental_residual(F, kp1, kp2, mask=None):
 @highp
 def homography_residual(H, kp1, kp2, mask=None):
     """Approximate geometric residual of H [... x 3 x 3] per pixel
-    correspondence [N x 2]: both rows' algebraic errors over their gradient
+    correspondence [... x N x 2] (leading axes broadcast against H's): both rows' algebraic errors over their gradient
     norms, combined through the angle between the two gradients."""
     h = [H.reshape(H.shape[:-2] + (9,))[..., k, None] for k in range(9)]
     x1, y1 = kp1[..., 0], kp1[..., 1]
@@ -67,9 +67,10 @@ def calc_gric(res, sigma, n, model, mask=None):
     Args:
         res: [... x N] residuals.
         sigma: assumed residual standard deviation.
-        n: effective number of correspondences (a 0-d tensor or number).
+        n: effective number of correspondences (a number, or a tensor
+            broadcasting against ``res``'s leading axes).
         model: 'FMat' | 'EMat' | 'HMat'.
-        mask: optional [N] bool; excluded residuals contribute 0.
+        mask: optional [... x N] bool; excluded residuals contribute 0.
     """
     R = 4.0
     K = _MODEL_K[model]

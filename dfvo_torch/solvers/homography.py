@@ -11,7 +11,7 @@ import torch
 
 from ..utils.precision import highp
 from .linalg import inv_3x3, nullspace_vector
-from .ransac import sample_points
+from .ransac import pick, sample_points
 
 
 def _hartley_transform(p, weights=None):
@@ -64,7 +64,8 @@ def homography_from_sample(p1, p2, weights=None):
 @highp
 def homography_transfer_error(H, p1, p2):
     """Squared forward transfer errors |p2 - proj(H p1)|^2 [... x N] of
-    homogeneous pixel correspondences [N x 3] under H [... x 3 x 3]."""
+    homogeneous pixel correspondences [... x N x 3] under H [... x 3 x 3]
+    (the leading axes of the points broadcast against H's)."""
     x1, y1, z1 = p1[..., 0], p1[..., 1], p1[..., 2]
     h = [[H[..., i, j, None] for j in range(3)] for i in range(3)]
     qx = h[0][0] * x1 + h[0][1] * y1 + h[0][2] * z1
@@ -80,35 +81,38 @@ def find_homography_ransac(rng, kp1, kp2, valid_mask, threshold=1.0,
     """Batched RANSAC homography (x2 ~ H x1) with three inlier-set refits.
 
     Args:
-        rng: PRNG key.
-        kp1, kp2: [N x 2] pixel correspondences.
-        valid_mask: [N] bool.
+        rng: PRNG key, or [... x 2] key words per frame (solvers/ransac.py).
+        kp1, kp2: [... x N x 2] pixel correspondences (leading frame axes).
+        valid_mask: [... x N] bool.
         threshold: inlier threshold in pixels.
         num_hypotheses: 4-point samples (static).
 
     Returns:
-        dict with ``H`` [3x3], ``inliers`` [N], ``inlier_cnt``.
+        dict with ``H`` [... x 3 x 3], ``inliers`` [... x N],
+        ``inlier_cnt`` [...].
     """
-    p1 = torch.cat([kp1, torch.ones_like(kp1[:, :1])], dim=-1)
-    p2 = torch.cat([kp2, torch.ones_like(kp2[:, :1])], dim=-1)
+    nb = valid_mask.dim() - 1
+    p1 = torch.cat([kp1, torch.ones_like(kp1[..., :1])], dim=-1)
+    p2 = torch.cat([kp2, torch.ones_like(kp2[..., :1])], dim=-1)
     thr2 = threshold ** 2
 
     samp = sample_points(rng, torch.cat([p1, p2], dim=-1), valid_mask,
                          num_hypotheses, 4)
     Hs = homography_from_sample(samp[..., :3], samp[..., 3:])
-    inliers = (homography_transfer_error(Hs, p1, p2) < thr2) & valid_mask
+    inliers = ((homography_transfer_error(Hs, p1[..., None, :, :], p2[..., None, :, :]) < thr2)
+               & valid_mask[..., None, :])
     counts = torch.sum(inliers, dim=-1)
-    best = torch.argmax(counts, dim=0, keepdim=True)
+    best = torch.argmax(counts, dim=-1, keepdim=True)
 
-    cur_inl = best_inl = inliers[best][0]
-    best_H = Hs[best][0]
-    best_cnt = counts[best][0]
+    cur_inl = best_inl = pick(inliers, best, nb)[..., 0, :]
+    best_H = pick(Hs, best, nb)[..., 0, :, :]
+    best_cnt = torch.gather(counts, -1, best)[..., 0]
     for _ in range(3):
         H = homography_from_sample(p1, p2, weights=cur_inl.to(p1.dtype))
         cur_inl = (homography_transfer_error(H, p1, p2) < thr2) & valid_mask
-        cnt = torch.sum(cur_inl)
+        cnt = torch.sum(cur_inl, dim=-1)
         better = cnt >= best_cnt
-        best_H = torch.where(better, H, best_H)
-        best_inl = torch.where(better, cur_inl, best_inl)
+        best_H = torch.where(better[..., None, None], H, best_H)
+        best_inl = torch.where(better[..., None], cur_inl, best_inl)
         best_cnt = torch.where(better, cnt, best_cnt)
     return {"H": best_H, "inliers": best_inl, "inlier_cnt": best_cnt}

@@ -92,9 +92,10 @@ def pnp_from_sample_planar(X, x_norm):
 @highp
 def _reproj_err_sq(R, t, X, x_pix, K):
     """Squared pixel reprojection errors [... x N] of object points
-    [N x 3] under poses (R [... x 3 x 3], t [... x 3]); points behind the
-    camera get +inf."""
-    X0, X1, X2 = X[:, 0], X[:, 1], X[:, 2]
+    [... x N x 3] under poses (R [... x 3 x 3], t [... x 3]; the points'
+    leading axes broadcast against R's); points behind the camera get
+    +inf."""
+    X0, X1, X2 = X[..., 0], X[..., 1], X[..., 2]
     r = [[R[..., a, b, None] for b in range(3)] for a in range(3)]
     tb = [t[..., a, None] for a in range(3)]
     px = r[0][0] * X0 + r[0][1] * X1 + r[0][2] * X2 + tb[0]
@@ -103,7 +104,7 @@ def _reproj_err_sq(R, t, X, x_pix, K):
     zs = torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
     u = K[0, 0] * (px / zs) + K[0, 1] * (py / zs) + K[0, 2]
     v = K[1, 1] * (py / zs) + K[1, 2]
-    err = (u - x_pix[:, 0]) ** 2 + (v - x_pix[:, 1]) ** 2
+    err = (u - x_pix[..., 0]) ** 2 + (v - x_pix[..., 1]) ** 2
     return torch.where(z > 0, err, torch.full_like(err, float("inf")))
 
 
@@ -113,25 +114,25 @@ def _gauss_newton_refine(R, t, X, x_pix, K, weight, iters=10):
     minimising the weighted pixel reprojection error."""
     fx, fy = K[0, 0], K[1, 1]
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    zero = torch.zeros_like(X[:, 0])
+    zero = torch.zeros_like(X[..., 0])
     for _ in range(iters):
-        P = X @ R.T + t
-        z = torch.clamp(P[:, 2], min=1e-6)
-        u = fx * P[:, 0] / z + K[0, 2]
-        v = fy * P[:, 1] / z + K[1, 2]
-        r = torch.stack([u - x_pix[:, 0], v - x_pix[:, 1]], dim=-1)
-        du = torch.stack([fx / z, zero, -fx * P[:, 0] / z ** 2], dim=-1)
-        dv = torch.stack([zero, fy / z, -fy * P[:, 1] / z ** 2], dim=-1)
-        J_p = torch.stack([du, dv], dim=-2)  # [N x 2 x 3]
-        dP = torch.cat([-skew(P), eye.expand(P.shape[0], 3, 3)], dim=-1)  # [N x 3 x 6]
-        J = J_p @ dP  # [N x 2 x 6]
-        Jw = J * weight[:, None, None]
-        H = torch.einsum("nki,nkj->ij", Jw, J) + 1e-6 * torch.eye(6, dtype=R.dtype,
-                                                                  device=R.device)
-        b = torch.einsum("nki,nk->i", Jw, r)
+        P = X @ R.transpose(-1, -2) + t[..., None, :]
+        z = torch.clamp(P[..., 2], min=1e-6)
+        u = fx * P[..., 0] / z + K[0, 2]
+        v = fy * P[..., 1] / z + K[1, 2]
+        r = torch.stack([u - x_pix[..., 0], v - x_pix[..., 1]], dim=-1)
+        du = torch.stack([fx / z, zero, -fx * P[..., 0] / z ** 2], dim=-1)
+        dv = torch.stack([zero, fy / z, -fy * P[..., 1] / z ** 2], dim=-1)
+        J_p = torch.stack([du, dv], dim=-2)  # [... x N x 2 x 3]
+        dP = torch.cat([-skew(P), eye.expand(P.shape[:-1] + (3, 3))], dim=-1)  # [... x N x 3 x 6]
+        J = J_p @ dP  # [... x N x 2 x 6]
+        Jw = J * weight[..., None, None]
+        H = torch.einsum("...nki,...nkj->...ij", Jw, J) + 1e-6 * torch.eye(
+            6, dtype=R.dtype, device=R.device)
+        b = torch.einsum("...nki,...nk->...i", Jw, r)
         delta = -spd_solve_small(H, b)
-        dR = so3_exp(delta[:3])
-        R, t = dR @ R, dR @ t + delta[3:]
+        dR = so3_exp(delta[..., :3])
+        R, t = dR @ R, (dR @ t[..., None])[..., 0] + delta[..., 3:]
     return R, t
 
 
@@ -150,57 +151,61 @@ def solve_pnp_ransac(
     """Batched RANSAC PnP.
 
     Args:
-        rng: PRNG key.
-        X: [N x 3] object (reference-view) points.
-        x_pix: [N x 2] observed pixels in the current view.
+        rng: PRNG key, or [... x 2] key words per frame (solvers/ransac.py).
+        X: [... x N x 3] object (reference-view) points, with optional
+            leading frame axes.
+        x_pix: [... x N x 2] observed pixels in the current view.
         K, K_inv: intrinsics.
-        valid_mask: [N] bool.
+        valid_mask: [... x N] bool.
         reproj_threshold: inlier threshold (pixels).
         num_hypotheses: 6-point samples (static).
         refine_iters: Gauss-Newton iterations on the winner (static).
 
     Returns:
-        dict with ``R`` [3x3], ``t`` [3], ``inliers`` [N], ``inlier_cnt``,
-        ``ok`` (more than 4 inliers).
+        dict with ``R`` [... x 3 x 3], ``t`` [... x 3], ``inliers``
+        [... x N], ``inlier_cnt``, ``ok`` (more than 4 inliers).
     """
-    x_norm = (torch.cat([x_pix, torch.ones_like(x_pix[:, :1])], dim=-1) @ K_inv.T)[:, :2]
+    nb = valid_mask.dim() - 1
+    x_norm = (torch.cat([x_pix, torch.ones_like(x_pix[..., :1])], dim=-1) @ K_inv.T)[..., :2]
     samp = sample_points(rng, torch.cat([X, x_norm], dim=-1), valid_mask,
                          num_hypotheses, 6)
     Xs, xs = samp[..., :3], samp[..., 3:]
     thr2 = reproj_threshold ** 2
     vmask = valid_mask.to(X.dtype)
-    r_norm = thr2 * (torch.sum(valid_mask).to(torch.float32) + 1.0)
+    r_norm = thr2 * (torch.sum(valid_mask, dim=-1).to(torch.float32) + 1.0)
 
-    def fscore(errs, inl):
-        rsum = torch.sum(torch.clamp(errs, max=thr2) * vmask, dim=-1)
-        return torch.sum(inl, dim=-1).to(torch.float32) - rsum / r_norm
+    def fscore(errs, inl, vm, rn):
+        rsum = torch.sum(torch.clamp(errs, max=thr2) * vm, dim=-1)
+        return torch.sum(inl, dim=-1).to(torch.float32) - rsum / rn
 
     # the three minimal solvers on every sample; P3P gives four poses each
     Rd, td = pnp_from_sample(Xs, xs)
     Rp, tp = pnp_from_sample_planar(Xs, xs)
-    R3, t3, ok3 = p3p_solutions(Xs[:, :3], xs[:, :3])
-    Rs = torch.cat([Rd, Rp, R3.reshape(-1, 3, 3)], dim=0)
-    ts = torch.cat([td, tp, t3.reshape(-1, 3)], dim=0)
-    cand_ok = torch.cat([torch.ones(2 * num_hypotheses, dtype=torch.bool, device=X.device),
-                         ok3.reshape(-1)])
-    errs = _reproj_err_sq(Rs, ts, X, x_pix, K)
-    inliers = (errs < thr2) & valid_mask
-    scores = torch.where(cand_ok, fscore(errs, inliers), torch.full_like(r_norm, -1.0))
+    R3, t3, ok3 = p3p_solutions(Xs[..., :3, :], xs[..., :3, :])
+    lead = valid_mask.shape[:-1]
+    Rs = torch.cat([Rd, Rp, R3.reshape(lead + (-1, 3, 3))], dim=-3)
+    ts = torch.cat([td, tp, t3.reshape(lead + (-1, 3))], dim=-2)
+    cand_ok = torch.cat([torch.ones(lead + (2 * num_hypotheses,), dtype=torch.bool,
+                                    device=X.device), ok3.reshape(lead + (-1,))], dim=-1)
+    errs = _reproj_err_sq(Rs, ts, X[..., None, :, :], x_pix[..., None, :, :], K)
+    inliers = (errs < thr2) & valid_mask[..., None, :]
+    scores = torch.where(cand_ok, fscore(errs, inliers, vmask[..., None, :], r_norm[..., None]),
+                         torch.full_like(r_norm[..., None], -1.0))
 
-    best = torch.argmax(scores)
-    R0, t0, inl_best = pick(Rs, best), pick(ts, best), pick(inliers, best)
+    best = torch.argmax(scores, dim=-1)
+    R0, t0, inl_best = pick(Rs, best, nb), pick(ts, best, nb), pick(inliers, best, nb)
     R1, t1 = _gauss_newton_refine(R0, t0, X, x_pix, K, inl_best.to(X.dtype),
                                   iters=refine_iters)
     refined_err = _reproj_err_sq(R1, t1, X, x_pix, K)
     refined_inl = (refined_err < thr2) & valid_mask
-    refined_cnt = torch.sum(refined_inl)
+    refined_cnt = torch.sum(refined_inl, dim=-1)
 
-    use_ref = fscore(refined_err, refined_inl) >= pick(scores, best)
-    cnt = torch.where(use_ref, refined_cnt, torch.sum(inl_best))
+    use_ref = fscore(refined_err, refined_inl, vmask, r_norm) >= pick(scores, best, nb)
+    cnt = torch.where(use_ref, refined_cnt, torch.sum(inl_best, dim=-1))
     return {
-        "R": torch.where(use_ref, R1, R0),
-        "t": torch.where(use_ref, t1, t0),
-        "inliers": torch.where(use_ref, refined_inl, inl_best),
+        "R": torch.where(use_ref[..., None, None], R1, R0),
+        "t": torch.where(use_ref[..., None], t1, t0),
+        "inliers": torch.where(use_ref[..., None], refined_inl, inl_best),
         "inlier_cnt": cnt,
         "ok": cnt > 4,
     }

@@ -37,9 +37,10 @@ def compute_pose_2d2d(
     """Pose (cur -> ref) from 2D-2D correspondences with model selection.
 
     Args:
-        rng: PRNG key.
-        kp_cur, kp_ref: [N x 2] pixel correspondences.
-        valid_mask: [N] bool.
+        rng: PRNG key, or [... x 2] key words per frame (solvers/ransac.py).
+        kp_cur, kp_ref: [... x N x 2] pixel correspondences, with optional
+            leading frame axes (the JAX package vmaps over frames).
+        valid_mask: [... x N] bool.
         K, K_inv: intrinsics.
         reproj_thre: RANSAC inlier threshold (pixels).
         repeats: RANSAC runs voting on validity (static).
@@ -51,11 +52,11 @@ def compute_pose_2d2d(
         validity_thre: cfg.e_tracker.validity.thre (flow / homo_ratio).
 
     Returns:
-        dict with ``R`` [3x3], ``t`` [3] (unit, or zero when rejected),
-        ``valid`` (0-d bool: majority vote and cheirality), ``inliers``
-        [N], ``inlier_cnt``.
+        dict with ``R`` [... x 3 x 3], ``t`` [... x 3] (unit, or zero when
+        rejected), ``valid`` ([...] bool: majority vote and cheirality),
+        ``inliers`` [... x N], ``inlier_cnt``.
     """
-    n_valid = torch.sum(valid_mask)
+    n_valid = torch.sum(valid_mask, dim=-1)
     nf = n_valid.to(kp_cur.dtype)
 
     if validity_method == "GRIC":
@@ -73,31 +74,36 @@ def compute_pose_2d2d(
     )
 
     # one validity vote per repeat slice, batched over the slices
+    per_slice = (..., None)
     if validity_method == "GRIC":
         F = K_inv.T @ e_out["slice_Es"] @ K_inv
-        e_res = fundamental_residual(F, kp_cur, kp_ref, mask=valid_mask)
-        e_grics = calc_gric(e_res, 0.8, nf, "EMat", mask=valid_mask)
+        e_res = fundamental_residual(F, kp_cur[..., None, :, :], kp_ref[..., None, :, :],
+                                     mask=valid_mask[..., None, :])
+        e_grics = calc_gric(e_res, 0.8, nf[per_slice], "EMat", mask=valid_mask[..., None, :])
         # the reference skips GRIC for 10 or fewer keypoints
-        votes = (h_gric > e_grics) & (n_valid > 10)
+        votes = (h_gric[per_slice] > e_grics) & (n_valid[per_slice] > 10)
     elif validity_method == "flow":
-        flow_mag = torch.linalg.vector_norm(kp_ref - kp_cur, dim=1)
-        avg_flow = torch.sum(flow_mag * valid_mask) / torch.clamp(nf, min=1.0)
-        _, _, cheirs = recover_pose(e_out["slice_Es"], kp_cur, kp_ref, K_inv,
-                                    valid_mask.expand(repeats, -1))
-        votes = (cheirs > n_valid * 0.1) & (avg_flow > validity_thre)
+        flow_mag = torch.linalg.vector_norm(kp_ref - kp_cur, dim=-1)
+        avg_flow = torch.sum(flow_mag * valid_mask, dim=-1) / torch.clamp(nf, min=1.0)
+        _, _, cheirs = recover_pose(e_out["slice_Es"], kp_cur[..., None, :, :],
+                                    kp_ref[..., None, :, :], K_inv,
+                                    valid_mask[..., None, :].expand(
+                                        valid_mask.shape[:-1] + (repeats, -1)))
+        votes = (cheirs > n_valid[per_slice] * 0.1) & (avg_flow[per_slice] > validity_thre)
     elif validity_method == "homo_ratio":
-        h_cnt = h_out["inlier_cnt"].to(kp_cur.dtype)
+        h_cnt = h_out["inlier_cnt"].to(kp_cur.dtype)[per_slice]
         ratios = h_cnt / torch.clamp(h_cnt + e_out["slice_cnts"].to(kp_cur.dtype), min=1.0)
         votes = ratios < validity_thre
     else:
-        votes = torch.ones(repeats, dtype=torch.bool, device=kp_cur.device)
+        votes = torch.ones(valid_mask.shape[:-1] + (repeats,), dtype=torch.bool,
+                           device=kp_cur.device)
 
-    major_valid = torch.sum(votes) > repeats / 2
+    major_valid = torch.sum(votes, dim=-1) > repeats / 2
     accept = major_valid & (e_out["cheirality_cnt"] > n_valid * 0.1)
     eye = torch.eye(3, dtype=kp_cur.dtype, device=kp_cur.device)
     return {
-        "R": torch.where(accept, e_out["R"], eye),
-        "t": torch.where(accept, e_out["t"], torch.zeros_like(e_out["t"])),
+        "R": torch.where(accept[..., None, None], e_out["R"], eye),
+        "t": torch.where(accept[..., None], e_out["t"], torch.zeros_like(e_out["t"])),
         "valid": accept,
         "inliers": e_out["inliers"],
         "inlier_cnt": e_out["inlier_cnt"],
@@ -121,12 +127,12 @@ def find_scale_from_depth(
     against the CNN depth of the current view.
 
     Args:
-        rng: PRNG key.
-        kp_ref, kp_cur: [N x 2] pixel correspondences (view 1 = ref,
-            view 2 = cur).
-        valid_mask: [N] bool.
-        T_ref_to_cur: [4 x 4] relative pose with unit translation.
-        depth_cur: [H x W] preprocessed CNN depth of the current view
+        rng: PRNG key, or [... x 2] key words per frame.
+        kp_ref, kp_cur: [... x N x 2] pixel correspondences (view 1 = ref,
+            view 2 = cur), with optional leading frame axes.
+        valid_mask: [... x N] bool.
+        T_ref_to_cur: [... x 4 x 4] relative pose with unit translation.
+        depth_cur: [... x H x W] preprocessed CNN depth of the current view
             (zeros = invalid).
         K_inv: [3 x 3] inverse intrinsics.
 
@@ -134,23 +140,24 @@ def find_scale_from_depth(
         dict with ``scale`` (-1 when 10 or fewer ratios are valid) and
         ``valid_cnt``.
     """
-    h, w = depth_cur.shape
+    h, w = depth_cur.shape[-2:]
 
     def norm_h(kp):
-        return torch.cat([kp, torch.ones_like(kp[:, :1])], dim=-1) @ K_inv.T
+        return torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1) @ K_inv.T
 
-    _, z_cur = two_view_depths(T_ref_to_cur[:3, :3], T_ref_to_cur[:3, 3],
+    _, z_cur = two_view_depths(T_ref_to_cur[..., :3, :3], T_ref_to_cur[..., :3, 3],
                                norm_h(kp_ref), norm_h(kp_cur))
 
     # CNN depth at the current keypoints' integer pixels (floor)
-    xi = torch.floor(kp_cur[:, 0]).long()
-    yi = torch.floor(kp_cur[:, 1]).long()
+    xi = torch.floor(kp_cur[..., 0]).long()
+    yi = torch.floor(kp_cur[..., 1]).long()
     in_bounds = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-    d_cnn = depth_cur[torch.clamp(yi, 0, h - 1), torch.clamp(xi, 0, w - 1)]
+    flat = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+    d_cnn = torch.gather(depth_cur.flatten(-2), -1, flat)
 
     ok = valid_mask & in_bounds & (z_cur > 0) & (d_cnn > 0)
     ratios = torch.where(ok, z_cur / torch.clamp(d_cnn, min=1e-12), torch.zeros_like(z_cur))
-    valid_cnt = torch.sum(ok)
+    valid_cnt = torch.sum(ok, dim=-1)
     fit = scale_ransac_1d(rng, ratios, ok, threshold=ransac_thre,
                           num_hypotheses=max_trials, min_samples=min_samples)
     scale = torch.where(valid_cnt > 10, fit["scale"], torch.full_like(fit["scale"], -1.0))

@@ -32,27 +32,28 @@ def compute_pose_3d2d(
     """Pose (cur -> ref) from reference-view depth and current-view pixels.
 
     Args:
-        rng: PRNG key.
-        kp_ref: [N x 2] reference-view keypoints (3D source).
-        kp_cur: [N x 2] matched current-view pixels.
-        valid_mask: [N] bool.
-        depth_ref: [H x W] reference-view depth map.
+        rng: PRNG key, or [... x 2] key words per frame (solvers/ransac.py).
+        kp_ref: [... x N x 2] reference-view keypoints (3D source), with
+            optional leading frame axes.
+        kp_cur: [... x N x 2] matched current-view pixels.
+        valid_mask: [... x N] bool.
+        depth_ref: [... x H x W] reference-view depth map.
         K, K_inv: intrinsics.
         min_depth, max_depth: accepted depth range.
         reproj_thre: RANSAC reprojection threshold (pixels).
         repeats: RANSAC runs, pooled into one budget (static).
 
     Returns:
-        dict with ``T`` [4x4] (cur -> ref), ``ok``, ``inliers`` [N],
-        ``mask`` [N].
+        dict with ``T`` [... x 4 x 4] (cur -> ref), ``ok``, ``inliers``
+        [... x N], ``mask`` [... x N].
     """
-    h, w = depth_ref.shape
-    in_bounds = ((kp_cur[:, 0] >= 0) & (kp_cur[:, 0] < w)
-                 & (kp_cur[:, 1] >= 0) & (kp_cur[:, 1] < h))
+    h, w = depth_ref.shape[-2:]
+    in_bounds = ((kp_cur[..., 0] >= 0) & (kp_cur[..., 0] < w)
+                 & (kp_cur[..., 1] >= 0) & (kp_cur[..., 1] < h))
     # integer pixel by truncation (astype(int32) in the JAX package)
-    xi = torch.clamp(kp_ref[:, 0].to(torch.int32), 0, w - 1).long()
-    yi = torch.clamp(kp_ref[:, 1].to(torch.int32), 0, h - 1).long()
-    kp_depth = depth_ref[yi, xi]
+    xi = torch.clamp(kp_ref[..., 0].to(torch.int32), 0, w - 1).long()
+    yi = torch.clamp(kp_ref[..., 1].to(torch.int32), 0, h - 1).long()
+    kp_depth = torch.gather(depth_ref.flatten(-2), -1, yi * w + xi)
     depth_ok = (kp_depth != 0) & (kp_depth > min_depth) & (kp_depth < max_depth)
     mask = valid_mask & in_bounds & depth_ok
 
@@ -60,8 +61,8 @@ def compute_pose_3d2d(
         rng, unproject_kp(kp_ref, kp_depth, K_inv), kp_cur, K, K_inv, mask,
         reproj_threshold=reproj_thre, num_hypotheses=repeats * num_hypotheses,
     )
-    ok = out["ok"] & (torch.sum(mask) > 4)
+    ok = out["ok"] & (torch.sum(mask, dim=-1) > 4)
     # (R, t) map ref-frame points into the cur camera; report cur -> ref
     T = se3_inverse(make_se3(out["R"], out["t"]))
-    T = torch.where(ok, T, torch.eye(4, dtype=T.dtype, device=T.device))
+    T = torch.where(ok[..., None, None], T, torch.eye(4, dtype=T.dtype, device=T.device))
     return {"T": T, "ok": ok, "inliers": out["inliers"], "mask": mask}

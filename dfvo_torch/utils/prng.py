@@ -7,6 +7,8 @@ the RANSAC draws then hash the two 32-bit words of a key
 a numpy ``uint32[2]`` array, and the functions below reproduce
 ``jax.random`` bit for bit (threefry2x32 with JAX's
 ``jax_threefry_partitionable`` layout, the default since JAX 0.5).
+:func:`chunk_keys` derives a whole chunk's split keys at once, for the
+scan runner to upload with the chunk's images.
 """
 
 import numpy as np
@@ -53,6 +55,37 @@ def split(key, num=2):
     """``jax.random.split(key, num)`` under the partitionable layout: row i
     is threefry of the counter pair (0, i)."""
     return np.stack([fold_in(key, i) for i in range(num)])
+
+
+def _threefry2x32_np(k0, k1, x0, x1):
+    """:func:`threefry2x32` over equal-shaped numpy arrays of words (held
+    in uint64, masked to 32 bits)."""
+    k0, k1, x0, x1 = (np.asarray(a, np.uint64) for a in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ np.uint64(0x1BD11BDA))
+    m = np.uint64(_MASK)
+    x = [(x0 + ks[0]) & m, (x1 + ks[1]) & m]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & m
+            x[1] = (((x[1] << np.uint64(r)) | (x[1] >> np.uint64(32 - r))) & m) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & m
+        x[1] = (x[1] + ks[(i + 2) % 3] + np.uint64(i + 1)) & m
+    return x[0], x[1]
+
+
+def chunk_keys(seed, ids, num=8):
+    """``split(fold_in(PRNGKey(seed), i), num)`` for every frame id ``i``
+    of ``ids``, as one uint32 [len(ids) x num x 2] array."""
+    ids = np.asarray(ids, np.uint64) & np.uint64(_MASK)
+    key = PRNGKey(seed)
+    zeros = np.zeros_like(ids)
+    f0, f1 = _threefry2x32_np(np.full_like(ids, key[0]), np.full_like(ids, key[1]), zeros, ids)
+    shape = (len(ids), num)
+    count = np.broadcast_to(np.arange(num, dtype=np.uint64), shape)
+    s0, s1 = _threefry2x32_np(np.broadcast_to(f0[:, None], shape),
+                              np.broadcast_to(f1[:, None], shape), np.zeros(shape, np.uint64),
+                              count)
+    return np.stack([s0, s1], axis=-1).astype(np.uint32)
 
 
 def key_data(key):

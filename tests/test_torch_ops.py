@@ -137,6 +137,37 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert T_head.head_conv_cuda.launches == 0
 
 
+def _grad_cases():
+    x = torch.zeros(1, 4, 4, 8)
+    return {
+        "correlation": (T_pcorr.correlation_cuda, lambda g: (g(x), x)),
+        "reg_dist_filter": (T_reg.reg_dist_filter_cuda, lambda g: (
+            g(torch.zeros(1, 4, 4, 9)), torch.zeros(1, 4, 4, 2), torch.zeros(9),
+            torch.zeros(1), torch.zeros(9), torch.zeros(1), 3)),
+        "head_conv": (T_head.head_conv_cuda, lambda g: (x, g(torch.zeros(3, 3, 8, 2)))),
+    }
+
+
+@pytest.mark.parametrize("name", ["correlation", "reg_dist_filter", "head_conv"])
+def test_cuda_wrappers_refuse_inputs_that_require_grad(name):
+    """The kernels have no backward: with autograd recording, an input that
+    requires grad is refused before the device is looked at (a CPU tensor
+    gets this error, not the CUDA one); under no_grad the device check
+    comes first as before, and the plain version keeps its autograd."""
+    fn, args = _grad_cases()[name]
+    needs_grad = args(lambda t: t.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fn(*needs_grad)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fn(*needs_grad)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args(lambda t: t))
+    assert fn.launches == 0
+    plain = {"correlation": T_corr.correlation, "reg_dist_filter": T_reg.reg_dist_filter,
+             "head_conv": T_head.head_conv}[name]
+    assert plain(*needs_grad).requires_grad
+
+
 def _sample_inputs(seed, n_src=2, b=2):
     rng = np.random.RandomState(seed)
     src = rng.randn(n_src, 9, 11, 5).astype(np.float32)

@@ -224,7 +224,6 @@ def test_from_cfg_matches_jax():
     ("depth_consistency", True, "item 9"),
     ("kp_method", "bestN", "item 7"),
     ("kp_method", "sampled", "item 7"),
-    ("defer_pnp", True, "item 5"),
 ])
 def test_unported_options_raise(field, value, item):
     z = torch.zeros(8, 12)
