@@ -73,14 +73,36 @@ seconds, none caught:
    the oracle (PnP on every frame); and the float32 oracle chunk of
    SCAN_PARITY_PAIRS pairs on the card against the CPU (equal modes,
    rotation within 0.01 deg, translation within SCAN_T_REL of |t|).
+13. finetune: online finetuning. Each kernel's autograd Function at every
+   shape of one update (192x640 float32: the cost volume at levels 6 -> 2
+   and the filter at its five levels on the [2, ...] pair batch, the ten
+   flow heads and the four disparity heads) against autograd of the plain
+   version on the same inputs and cotangent, launching the float32
+   variants (cuda_core; async_tile for the filter); each one's forward and
+   plain-VJP backward device ms beside their bounds and, for the head
+   conv, cuDNN's conv2d and convolution_backward. Then the CLI with
+   ablation_self_flow_online.yml's options plus depth finetuning and
+   save_model, in frame execution over RUN_FRAMES frames and in scan
+   execution over SCAN_FRAMES frames: one update per tracked frame, the
+   weights moved and the running statistics fixed, finite losses,
+   finetuned_model/ written, launches (inference + 5 / 5 / 14 float32
+   launches and as many Function backward passes per update) and host
+   reads (3 per frame; 2 per chunk and 1 for the saved model) under CUDA
+   sync debug mode. Then one update at 192x640 on the card (TF32 off, and
+   cuDNN's TF32 convolutions, PyTorch's default) against the CPU, beside
+   the CPU's own change under a 1e-6 change of the image; and the update's
+   CUDA-event ms split into forward, backward and Adam, the chunk update
+   per pair, kernels, busy share, host syncs (none) and peak memory.
 
 Weights and inputs are drawn from SEED.
 
 It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
-tracking numbers, a JSON line of the scan execution, a JSON line of the
-kernels (launches from the slice phase, from the CLI run as
-launches_cli and from the scan execution as launches_scan),
+tracking numbers, a JSON line of the scan execution, a JSON line of
+finetuning, a JSON line of the kernels (launches from the slice phase,
+from the CLI run as launches_cli, from the scan execution as
+launches_scan and from the finetuning updates of both CLI runs as
+launches_finetune),
 the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result, when no CUDA device is available
 or any phase fails.
@@ -145,6 +167,33 @@ SCAN_HOST_READS = 2
 # the float32 oracle chunk on the card and on the CPU (scan phase)
 SCAN_PARITY_PAIRS = 8
 SCAN_T_REL = 1e-3
+# online finetuning (finetune phase): options/examples/ablation_self_flow_online.yml
+# merged on the default, plus depth finetuning at the default's scales
+ABLATION_CFG = os.path.join(ROOT, "options", "examples", "ablation_self_flow_online.yml")
+# launches per update: LiteFlowNet in "two" mode on the [2, ...] forward and
+# backward pair (5 levels, 10 flow-delta heads) and Monodepth2's 4 disparity
+# heads, all float32 (cuda_core; async_tile for the filter); as many backward
+# passes of each Function
+FT_PER_UPDATE = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 14}
+FT_VARIANT = {"correlation": "cuda_core", "reg_dist_filter": "async_tile",
+              "head_conv": "cuda_core"}
+FT_LR = 1e-5
+FT_CHUNK_PAIRS = 8
+# one update on the card against the CPU in float32: the loss, each
+# network's gradient by relative norm, and the share of the moving weights
+# whose Adam step (about lr·sign(g)) has the CPU's sign. With TF32 off the
+# two differ in summation order only. The depth gradient turns on
+# discontinuities (the per-pixel minimum of the auto-masking, the border
+# sampler's cells) that rounding moves, so it gets a wider limit; the CPU's
+# own change under a 1e-6 relative change of the image is printed beside
+# (measured first at 192x640: 1.2e-2 card vs CPU). cuDNN's TF32
+# convolutions (10-bit mantissas, PyTorch's default, as the CLIs ran) move
+# the forward by about 1e-3 per convolution: measured first 1.0e-3 (flow)
+# and 0.165 (depth) by norm, 99.87 % and 93.5 % of the steps' signs
+FT_F32_LIMITS = {"loss_rel": 1e-4, "flow_grad_rel": 1e-3, "depth_grad_rel": 5e-2,
+                 "flow_same_sign": 0.99, "depth_same_sign": 0.99}
+FT_TF32_LIMITS = {"loss_rel": 1e-2, "flow_grad_rel": 5e-2, "depth_grad_rel": 0.5,
+                  "flow_same_sign": 0.95, "depth_same_sign": 0.8}
 # the tracking scenes' intrinsics (tests/test_pipeline.py)
 TRACK_K = np.array([[370.0, 0, 320.0], [0, 371.0, 96.0], [0, 0, 1.0]], np.float32)
 # the variant each kernel's bf16 main-path launches must take
@@ -1667,6 +1716,532 @@ def scan_phase(seed, out_dir):
     }
 
 
+def ft_cases(chk):
+    """Every kernel at every shape of one finetuning update (192x640, float32;
+    LiteFlowNet N = 2, depth N = 1): (kernel, label, Function, plain version,
+    kernel wrapper, tensor inputs, other arguments, calls per update, forward
+    bound, backward bound, library forward, library backward)."""
+    from dfvo_torch.ops.correlation import CorrelationFunction, correlation_plain
+    from dfvo_torch.ops.headconv import HeadConvFunction, head_conv_cuda, head_conv_plain
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+    from dfvo_torch.ops.regfilter import (RegDistFilterFunction, reg_dist_filter_cuda,
+                                          reg_dist_filter_plain)
+
+    n, cases = 2, []
+    for lvl, (h, w, c) in CORR_SHAPES:
+        # levels 3 and 2 read the stride-2 view of the level's features
+        f1 = chk.randn((n, 2 * h, 2 * w, c))[:, ::2, ::2] if lvl <= 3 else chk.randn((n, h, w, c))
+        f2 = chk.randn((n, h, w, c))
+        io = 4 * (2 * n * h * w * c + n * h * w * 49)
+        ops = 2 * n * h * w * 49 * c
+        cases.append(("correlation", f"L{lvl} [{n}, {h}, {w}, {c}]", CorrelationFunction,
+                      correlation_plain, correlation_cuda, (f1, f2), (3, 1), 1,
+                      bound(io, ops, PEAK_F32),
+                      # read f1, f2 and the cotangent, write both gradients;
+                      # two products per tap and channel
+                      bound(io + 4 * 2 * n * h * w * c, 2 * ops, PEAK_F32), None, None))
+    for lvl, (h, w), k in REG_SHAPES:
+        kk = k * k
+        ins = (chk.randn((n, h, w, kk), 2.0), chk.randn((n, h, w, 2), 4.0),
+               chk.randn((1, kk, 1, 1)), chk.randn((1,)), chk.randn((1, kk, 1, 1)),
+               chk.randn((1,)))
+        io = 4 * (n * h * w * (kk + 4) + 2 * kk + 2)
+        ops = n * h * w * (11 * kk + 6)
+        cases.append(("reg_dist_filter", f"L{lvl} k{k} [{n}, {h}, {w}]", RegDistFilterFunction,
+                      reg_dist_filter_plain, reg_dist_filter_cuda, ins, (k,), 1,
+                      bound(io, ops, PEAK_F32),
+                      # read the inputs and the cotangent, write a gradient of
+                      # each input; the VJP counted as twice the forward's work
+                      bound(2 * io, 2 * ops, PEAK_F32), None, None))
+    heads = [(name, (n, *hwc), cout, k, pre, 2) for name, hwc, cout, k, pre in LFN_HEADS]
+    heads += [(name, (1, *hwc), cout, k, pre, 1) for name, hwc, cout, k, pre in DEPTH_HEADS]
+    for name, (nn_, h, w, cin), cout, k, pre, calls in heads:
+        x = chk.randn((nn_, h, w, cin))
+        w_oihw = chk.randn((cout, cin, k, k), 1.0 / math.sqrt(k * k * cin))
+        bias = chk.randn((cout,), 0.1)
+        pad = 0 if pre else (k - 1) // 2
+        oh, ow = h - 2 * ((k - 1) // 2 - pad), w - 2 * ((k - 1) // 2 - pad)
+        io = 4 * (nn_ * h * w * cin + nn_ * oh * ow * cout + k * k * cin * cout + cout)
+        ops = 2 * nn_ * oh * ow * k * k * cin * cout
+
+        def lib_fwd(x=x, w=w_oihw, b=bias, pad=pad):
+            return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, b, padding=pad)
+
+        def lib_bwd(x=x, w=w_oihw, pad=pad, g=chk.randn((nn_, oh, ow, cout)).permute(0, 3, 1, 2)):
+            return torch.ops.aten.convolution_backward(
+                g, x.permute(0, 3, 1, 2), w, [w.shape[0]], [1, 1], [pad, pad], [1, 1],
+                False, [0, 0], 1, [True, True, True])
+        cases.append(("head_conv", f"{name} [{nn_}, {h}, {w}, {cin}]", HeadConvFunction,
+                      head_conv_plain, head_conv_cuda,
+                      (x, w_oihw.permute(2, 3, 1, 0), bias), (pre,), calls,
+                      bound(io, ops, PEAK_F32),
+                      # read x, the weights and the cotangent, write the three
+                      # gradients; the input and weight gradients each as many
+                      # products as the forward
+                      bound(2 * io, 2 * ops, PEAK_F32), lib_fwd, lib_bwd))
+    return cases
+
+
+def ft_kernel_checks(cases):
+    """Each case through its Function on the card (the float32 kernel, then
+    the plain version's VJP) against autograd of the plain version on the
+    same inputs and cotangent: the output within 1e-4·max(1, |ref|) and
+    each input gradient within 1e-4·max(1, |ref|) (the same plain code in
+    both; cuDNN may pick another algorithm). Returns {kernel: (forward err,
+    backward err)}."""
+    counters = launch_counts()
+    worst = {k: [0.0, 0.0] for k in PER_CALL}
+    for kernel, label, fn_cls, plain, _, ins, rest, *_ in cases:
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        before = dict(counters[kernel].variant_launches)
+        calls = fn_cls.backward_calls
+        out = fn_cls.apply(*leaves, *rest)
+        after = counters[kernel].variant_launches
+        ran = [v for v in after if after[v] != before[v]]
+        if ran != [FT_VARIANT[kernel]]:
+            fail(f"finetune {kernel} {label}: ran {ran}, not {FT_VARIANT[kernel]}")
+        cot = torch.randn_like(out)
+        grads = torch.autograd.grad(out, leaves, cot)
+        if fn_cls.backward_calls != calls + 1:
+            fail(f"finetune {kernel} {label}: the Function's backward did not run")
+        ref_leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        ref = plain(*ref_leaves, *rest)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, cot)
+        errs = []
+        for name, got, want in [("out", out, ref)] + [
+                (f"grad {i}", g, r) for i, (g, r) in enumerate(zip(grads, ref_grads))]:
+            err = (got.detach() - want.detach()).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            if not err <= 1e-4 * scale:
+                fail(f"finetune {kernel} {label}: {name} max abs err {err:.3e} > "
+                     f"{1e-4 * scale:.3e}")
+            errs.append(err)
+        worst[kernel][0] = max(worst[kernel][0], errs[0])
+        worst[kernel][1] = max(worst[kernel][1], max(errs[1:]))
+        print(f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
+              f"input grads err {max(errs[1:]):.2e}", flush=True)
+    return worst
+
+
+def ft_kernel_times(cases):
+    """Device ms (torch.profiler) of each case's float32 kernel forward and
+    of its backward (the plain version's VJP: the recomputed forward and its
+    gradients), beside the plain forward, the library calls and the bounds;
+    summed per update."""
+    rows = []
+    for kernel, label, _, plain, kfn, ins, rest, calls, bfwd, bbwd, lfwd, lbwd in cases:
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        cot = torch.randn_like(plain(*ins, *rest))
+
+        def vjp(leaves=leaves, plain=plain, rest=rest, cot=cot):
+            with torch.enable_grad():
+                return torch.autograd.grad(plain(*leaves, *rest), leaves, cot)
+
+        with torch.no_grad():
+            row = {"kernel": kernel, "shape": label, "per_update": calls,
+                   "fwd_ms": device_ms(lambda: kfn(*ins, *rest)),
+                   "plain_fwd_ms": device_ms(lambda: plain(*ins, *rest), reps=3),
+                   "library_fwd_ms": device_ms(lfwd) if lfwd else None,
+                   "library_bwd_ms": device_ms(lbwd) if lbwd else None,
+                   "fwd_bound_ms": bfwd[0], "fwd_bound_by": bfwd[1],
+                   "bwd_bound_ms": bbwd[0], "bwd_bound_by": bbwd[1]}
+        row["bwd_ms"] = device_ms(vjp, reps=3)
+        rows.append(row)
+        lf = "none" if lfwd is None else f"{row['library_fwd_ms']:.4f}"
+        lb = "none" if lbwd is None else f"{row['library_bwd_ms']:.4f}"
+        print(f"  {kernel:16s} {label:32s} fwd {row['fwd_ms']:.4f} (bound {bfwd[0]:.4f} "
+              f"{bfwd[1]}, plain {row['plain_fwd_ms']:.4f}, library {lf})  bwd "
+              f"{row['bwd_ms']:.4f} (bound {bbwd[0]:.4f} {bbwd[1]}, library {lb})  "
+              f"x{calls}", flush=True)
+    sums = {}
+    for name in PER_CALL:
+        mine = [r for r in rows if r["kernel"] == name]
+
+        def tot(key, mine=mine):
+            vals = [r[key] for r in mine]
+            return None if None in vals else sum(r["per_update"] * v for r, v in zip(mine, vals))
+
+        def by(key, mine=mine):
+            b = sum(r["per_update"] * r[f"{key}_bound_ms"] for r in mine
+                    if r[f"{key}_bound_by"] == "bytes")
+            return "bytes" if b >= tot(f"{key}_bound_ms") / 2 else "operations"
+
+        sums[name] = {"launches_per_update": sum(r["per_update"] for r in mine),
+                      "fwd_ms": tot("fwd_ms"), "plain_fwd_ms": tot("plain_fwd_ms"),
+                      "fwd_bound_ms": tot("fwd_bound_ms"), "fwd_bound_by": by("fwd"),
+                      "library_fwd_ms": tot("library_fwd_ms"),
+                      "bwd_ms": tot("bwd_ms"), "bwd_bound_ms": tot("bwd_bound_ms"),
+                      "bwd_bound_by": by("bwd"), "library_bwd_ms": tot("library_bwd_ms")}
+        s = sums[name]
+        print(f"  per update, {name}: {s['launches_per_update']} launches; forward "
+              f"{s['fwd_ms']:.4f} ms (bound {s['fwd_bound_ms']:.4f}, {s['fwd_bound_by']}); "
+              f"backward {s['bwd_ms']:.4f} ms (bound {s['bwd_bound_ms']:.4f}, "
+              f"{s['bwd_bound_by']})")
+    return rows, sums
+
+
+def ft_config(root, data, result, execution):
+    """A custom YAML: ablation_self_flow_online.yml's options, depth
+    finetuning on (the default's scales, pose_src DF-VO), save_model, the
+    sequence and the directories."""
+    import yaml
+
+    with open(ABLATION_CFG) as f:
+        custom = yaml.safe_load(f)
+    custom["online_finetune"]["save_model"] = True
+    custom["online_finetune"]["depth"] = {"enable": True}
+    custom["seq"] = RUN_SEQ
+    custom["directory"] = {"img_seq_dir": f"{data}/odom_data",
+                           "gt_pose_dir": f"{data}/gt_poses", "result_dir": result}
+    if execution == "scan":
+        custom["tpu"] = {"execution": "scan"}
+    path = os.path.join(root, f"custom_{execution}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(custom, f)
+    return path
+
+
+class LossRecorder:
+    """Keeps the loss tensor of every finetuning update (read after the
+    run, so the reads are not counted)."""
+
+    def __init__(self):
+        from dfvo_torch.pipeline.finetune import OnlineFinetuner
+
+        self.cls, self.orig, self.losses = OnlineFinetuner, OnlineFinetuner.value_and_grad, []
+        rec = self
+
+        def value_and_grad(ft, *a, **kw):
+            loss, grads = rec.orig(ft, *a, **kw)
+            rec.losses.append(loss)
+            return loss, grads
+
+        OnlineFinetuner.value_and_grad = value_and_grad
+
+    def close(self):
+        self.cls.value_and_grad = self.orig
+
+
+def ft_cli_run(seed, execution, frames):
+    """The CLI with the finetuning YAML over ``frames`` frames of the run
+    phase's sequence, recorded: host reads, launches, Function backward
+    passes, losses, peak memory."""
+    from dfvo_torch.apis import run as cli
+    from dfvo_torch.ops.correlation import CorrelationFunction
+    from dfvo_torch.ops.headconv import HeadConvFunction
+    from dfvo_torch.ops.regfilter import RegDistFilterFunction
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "finetune", execution)
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    write_run_sequence(data, seed, frames)
+    custom = ft_config(root, data, result, execution)
+    functions = {"correlation": CorrelationFunction, "reg_dist_filter": RegDistFilterFunction,
+                 "head_conv": HeadConvFunction}
+    for fn in functions.values():
+        fn.backward_calls = 0
+    counters = reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = FrameRecorder() if execution == "frame" else ScanRecorder()
+    losses = LossRecorder()
+    try:
+        t0 = time.perf_counter()
+        vo = cli.main(["-d", CFG, "-c", custom, "--no_confirm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+        losses.close()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"vo": vo, "wall": wall, "peak": peak, "rec": rec, "result": result,
+           "losses": torch.stack(losses.losses).cpu().numpy() if losses.losses else np.zeros(0),
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "variants": {k: dict(fn.variant_launches) for k, fn in counters.items()},
+           "backward_calls": {k: fn.backward_calls for k, fn in functions.items()}}
+    return out
+
+
+def ft_check_cli(r, execution, frames):
+    """The finetuning CLI run's checks; returns its summary."""
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    vo = r["vo"]
+    cfg = vo.cfg
+    ft = vo.finetuner
+    tracked = frames - 1
+    if ft is None or ft.num_frames is not None or not (ft.train_flow and ft.train_depth) \
+            or list(cfg.online_finetune.flow.scales) != [1, 2, 3, 4, 5] \
+            or list(cfg.online_finetune.depth.scales) != [0, 1, 2, 3]:
+        fail(f"finetune {execution}: the configuration did not take "
+             f"(num_frames {None if ft is None else ft.num_frames})")
+    if vo.finetune_cnt != tracked or vo.opt_state["count"] != tracked:
+        fail(f"finetune {execution}: finetune_cnt {vo.finetune_cnt}, Adam count "
+             f"{vo.opt_state['count']}, expected {tracked}")
+    traj = load_poses_from_txt(os.path.join(r["result"], f"{RUN_SEQ}.txt"))
+    if sorted(traj) != list(range(frames)) or not all(np.isfinite(p).all()
+                                                    for p in traj.values()):
+        fail(f"finetune {execution}: {sorted(traj)} poses, expected {frames} finite")
+    if not os.path.isfile(os.path.join(r["result"], "finetuned_model", "variables.pt")):
+        fail(f"finetune {execution}: no finetuned_model/variables.pt")
+    losses = r["losses"]
+    if len(losses) != tracked or not np.isfinite(losses).all():
+        fail(f"finetune {execution}: {len(losses)} losses, finite "
+             f"{bool(np.isfinite(losses).all())}, expected {tracked}")
+    init = vo.frontend.init_variables(torch.Generator().manual_seed(int(cfg.seed)))
+    moved = {net: max((vo.variables[net][k].cpu() - init[net][k]).abs().max().item()
+                      for k in vo.frontend.trainable_keys(net)) for net in ("flow", "depth")}
+    stats_fixed = all(torch.equal(vo.variables["depth"][k].cpu(), init["depth"][k])
+                      for k in init["depth"] if k.endswith(("running_mean", "running_var")))
+    # Adam moves a weight by about lr per update
+    if not (0.5 * FT_LR < min(moved.values()) and max(moved.values()) < 3 * FT_LR * tracked
+            and stats_fixed):
+        fail(f"finetune {execution}: weights moved {moved}, running statistics fixed "
+             f"{stats_fixed}")
+    if execution == "frame":
+        infer = {k: tracked * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    else:
+        n_chunks = math.ceil(tracked / int(cfg.tpu.scan_chunk))
+        infer = {k: n_chunks * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    want_ft = {k: tracked * FT_PER_UPDATE[k] for k in PER_CALL}
+    launches_ft = {k: r["launches"][k] - infer[k] for k in PER_CALL}
+    print(f"  launches {r['launches']} = inference {infer} + updates {launches_ft} "
+          f"(expected {want_ft}); by variant {r['variants']}; Function backward passes "
+          f"{r['backward_calls']}")
+    if launches_ft != want_ft or r["backward_calls"] != want_ft:
+        fail(f"finetune {execution}: update launches {launches_ft}, backward passes "
+             f"{r['backward_calls']}, expected {want_ft}")
+    for k in ("correlation", "head_conv"):
+        by = r["variants"][k]
+        if by["tensor_core"] != infer[k] or by["cuda_core"] != want_ft[k]:
+            fail(f"finetune {execution}: {k} by variant {by}, expected {infer[k]} "
+                 f"tensor_core (inference) and {want_ft[k]} cuda_core (updates)")
+    if execution == "frame":
+        reads = RUN_HOST_READS[vo.drawer is not None]
+        syncs, where = r["rec"].syncs, r["rec"].where
+        if syncs != [0] + [reads] * tracked:
+            fail(f"finetune frame: host reads per frame {syncs}, expected 0 then {reads}; "
+                 f"by source line {where}")
+    else:
+        windows = r["rec"].windows()
+        syncs = [len(x) for x in windows]
+        where = {}
+        for loc in (loc for x in windows for loc in x):
+            where[loc] = where.get(loc, 0) + 1
+        n_chunks = math.ceil(tracked / int(cfg.tpu.scan_chunk))
+        # after the last chunk: one read, the finetuned model's download
+        if syncs != [0] + [SCAN_HOST_READS] * n_chunks + [1]:
+            fail(f"finetune scan: host reads {syncs}, expected 0, {SCAN_HOST_READS} per chunk, "
+                 f"1 (the saved model); by source line {where}")
+    times = vo.timers.timers
+    per_frame = {k: 1e3 * sum(times[k]["times"]) / tracked
+                 for k in ("data_loading", "vo_step", "finetune", "visualization", "DF-VO")
+                 if k in times}
+    print(f"  {execution}: {frames} frames, {tracked} updates, main() in {r['wall']:.2f} s; "
+          f"per tracked frame (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in per_frame.items())
+          + f"; losses {losses[0]:.4f} .. {losses[-1]:.4f}; weights moved "
+          f"{ {k: f'{v:.2e}' for k, v in moved.items()} }; host reads {syncs} by source line "
+          f"{where}; peak memory {r['peak'] / 2**30:.2f} GiB", flush=True)
+    # one update per tracked frame: per_frame["finetune"] is ms per update
+    return {"frames": frames, "updates": tracked, "ms_per_tracked_frame": per_frame,
+            "host_reads": syncs, "host_reads_by_line": where, "launches": r["launches"],
+            "launches_finetune": launches_ft, "backward_calls": r["backward_calls"],
+            "loss_first_last": [float(losses[0]), float(losses[-1])],
+            "weights_moved_max": moved, "peak_mem_gib": r["peak"] / 2**30}
+
+
+def ft_update_setup(device, seed, cfg):
+    from dfvo_torch.pipeline.finetune import OnlineFinetuner
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+
+    fe = DeepFrontend(cfg, device)
+    ft = OnlineFinetuner(fe, cfg)
+    variables = {net: {k: v.to(device) for k, v in sd.items()}
+                 for net, sd in fe.init_variables(torch.Generator().manual_seed(seed)).items()}
+    h, w = cfg.image.height, cfg.image.width
+    K = np.array([[0.58 * w, 0, 0.5 * w], [0, 1.92 * h, 0.5 * h], [0, 0, 1]], np.float32)
+    state = ft.init_state(variables, K, np.linalg.inv(K))
+    frames = make_frames(seed, 2, h, w)
+    img_ref, img_cur = (torch.from_numpy(f).to(device).float() / 255.0 for f in frames)
+    pose = np.eye(4, dtype=np.float32)
+    c, s_ = math.cos(0.01), math.sin(0.01)
+    pose[:3, :3] = [[c, 0, s_], [0, 1, 0], [-s_, 0, c]]
+    pose[:3, 3] = [0.02, 0.0, 0.5]  # metres of the DF-VO pose (/5.4 in network units)
+    return ft, variables, state, img_ref, img_cur, torch.from_numpy(pose).to(device)
+
+
+def ft_one_update(device, seed, cfg, perturb=0.0):
+    """(loss, gradients, Adam steps of the weights, seconds) of one update
+    from the seeded weights, on the host; ``perturb`` scales a relative
+    random change of the current image."""
+    ft, variables, state, a, b, pose = ft_update_setup(device, seed, cfg)
+    if perturb:
+        gen = torch.Generator().manual_seed(seed + 1)
+        b = b * (1 + perturb * torch.randn(b.shape, generator=gen).to(device))
+    before = {net: {k: t.detach().cpu().clone() for k, t in sd.items()}
+              for net, sd in ft._trainable(variables).items()}
+    t0 = time.perf_counter()
+    loss, grads = ft.value_and_grad(variables, a[None], b[None], pose[None])
+    ft.optimizer.update(grads, state, ft._trainable(variables))
+    loss = float(loss)
+    return (loss, {n: {k: g.cpu() for k, g in sd.items()} for n, sd in grads.items()},
+            {n: {k: variables[n][k].cpu() - before[n][k] for k in sd}
+             for n, sd in before.items()}, time.perf_counter() - t0)
+
+
+def ft_compare(got, want):
+    """The loss's relative error, and per network the gradient's relative
+    error by norm (the whole network, and the median and worst tensor) and
+    the share of the moving weights (|step| > lr/2) whose Adam step has
+    the same sign."""
+    (lc, gc, sc, _), (lh, gh, sh, _) = got, want
+    out = {"loss_rel": abs(lc - lh) / abs(lh)}
+    for net in gc:
+        a = torch.cat([g.ravel() for g in gc[net].values()]).double()
+        b = torch.cat([g.ravel() for g in gh[net].values()]).double()
+        per = sorted(((gc[net][k] - gh[net][k]).norm() / gh[net][k].norm()).item()
+                     for k in gh[net] if gh[net][k].norm() > 0)
+        st_c = torch.cat([v.ravel() for v in sc[net].values()])
+        st_h = torch.cat([v.ravel() for v in sh[net].values()])
+        moving = st_h.abs() > 0.5 * FT_LR
+        out[net] = {"grad_rel": ((a - b).norm() / b.norm()).item(),
+                    "grad_rel_per_tensor_median": per[len(per) // 2],
+                    "grad_rel_per_tensor_max": per[-1],
+                    "step_same_sign_share": (torch.sign(st_c[moving])
+                                             == torch.sign(st_h[moving])).float().mean().item(),
+                    "step_max_abs_diff": (st_c - st_h).abs().max().item()}
+    return out
+
+
+def ft_card_vs_cpu(seed, cfg):
+    """One update at 192x640 in float32 on the card, with TF32 off and with
+    cuDNN's TF32 convolutions (PyTorch's default, as the CLIs ran), against
+    the CPU."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    runs = {}
+    try:
+        for name, on in (("card_tf32_off", False), ("card", True)):
+            torch.backends.cudnn.allow_tf32 = on
+            runs[name] = ft_one_update("cuda", seed, cfg)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    runs["cpu"] = ft_one_update("cpu", seed, cfg)
+    runs["cpu_perturbed"] = ft_one_update("cpu", seed, cfg, perturb=1e-6)
+    out = {"loss_cpu": runs["cpu"][0], "cpu_s": runs["cpu"][3]}
+    for name, limits in (("cpu_perturbed", None), ("card_tf32_off", FT_F32_LIMITS),
+                         ("card", FT_TF32_LIMITS)):
+        c = out[name] = ft_compare(runs[name], runs["cpu"])
+        c["loss"], c["seconds"] = runs[name][0], runs[name][3]
+        print(f"  {name} vs CPU, one update at {cfg.image.height}x{cfg.image.width} float32: "
+              f"loss {c['loss']:.7f} / {runs['cpu'][0]:.7f} (rel {c['loss_rel']:.2e}); "
+              f"{c['seconds']:.2f} s / {runs['cpu'][3]:.2f} s; " + "; ".join(
+                  f"{net}: gradient rel {c[net]['grad_rel']:.2e} (per tensor median "
+                  f"{c[net]['grad_rel_per_tensor_median']:.2e}, max "
+                  f"{c[net]['grad_rel_per_tensor_max']:.2e}), Adam step same sign "
+                  f"{100 * c[net]['step_same_sign_share']:.2f} %, max diff "
+                  f"{c[net]['step_max_abs_diff']:.2e}" for net in ("flow", "depth"))
+              + f"; limits {limits}", flush=True)
+        if limits is None:  # the CPU's own sensitivity: a yardstick, no check
+            continue
+        if not c["loss_rel"] <= limits["loss_rel"]:
+            fail(f"finetune {name} vs CPU: loss {c['loss']} vs {runs['cpu'][0]}")
+        for net in ("flow", "depth"):
+            if not (c[net]["grad_rel"] <= limits[f"{net}_grad_rel"]
+                    and c[net]["step_same_sign_share"] >= limits[f"{net}_same_sign"]):
+                fail(f"finetune {name} vs CPU, {net}: {c[net]}")
+    return out
+
+
+def ft_update_times(seed, cfg, out_dir):
+    """CUDA-event medians of one update, split into the loss forward, the
+    backward and the Adam step; the chunk update per pair; kernels, busy
+    share and peak memory of one update."""
+    ft, variables, state, a, b, pose = ft_update_setup("cuda", seed, cfg)
+
+    def split():
+        """OnlineFinetuner.update with events between its three parts."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        masters = ft._trainable(variables)
+        leaves = {n: {k: t.detach().requires_grad_(True) for k, t in sd.items()}
+                  for n, sd in masters.items()}
+        flat = [(n, k, t) for n, sd in leaves.items() for k, t in sd.items()]
+        ev[0].record()
+        with torch.enable_grad():
+            loss = ft.loss_fn(leaves, variables, a[None], b[None], pose[None])
+            ev[1].record()
+            got = torch.autograd.grad(loss, [t for *_, t in flat], allow_unused=True)
+        grads = {n: {} for n in leaves}
+        for (n, k, t), g in zip(flat, got):
+            grads[n][k] = torch.zeros_like(t) if g is None else g
+        ev[2].record()
+        ft.optimizer.update(grads, state, masters)
+        ev[3].record()
+        ev[3].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    for _ in range(2):
+        split()
+    samples = [split() for _ in range(5)]
+    fwd, bwd, adam = (statistics.median(x[i] for x in samples) for i in range(3))
+    update_ms = time_cuda(lambda: ft.update(variables, state, a, b, pose), reps=1, rounds=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ft.update(variables, state, a, b, pose)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    syncs = count_syncs(lambda: ft.update(variables, state, a, b, pose))
+    if syncs:
+        fail(f"finetune update: {syncs} host syncs, expected none")
+    prof = profile_call(lambda: ft.update(variables, state, a, b, pose), "finetune_update",
+                        out_dir)
+    frames = torch.from_numpy(make_frames(seed, FT_CHUNK_PAIRS + 1, cfg.image.height,
+                                          cfg.image.width)).cuda()
+    poses = pose.expand(FT_CHUNK_PAIRS, 4, 4).contiguous()
+    chunk_update = ft.make_chunk_update_fn()
+    chunk_ms = time_cuda(lambda: chunk_update(variables, state, frames, poses, FT_CHUNK_PAIRS),
+                         reps=1, rounds=3)
+    out = {"update_ms": update_ms, "forward_ms": fwd, "backward_ms": bwd, "adam_ms": adam,
+           "chunk_update_ms_per_pair": chunk_ms / FT_CHUNK_PAIRS, "host_syncs": syncs,
+           "peak_mem_gib": peak / 2**30, "kernels": prof["kernels"],
+           "busy_share": prof["busy_share"], "device_busy_ms": prof["device_busy_ms"],
+           "top": prof["top"]}
+    print(f"  update: {update_ms:.2f} ms (CUDA events, median; forward {fwd:.2f}, backward "
+          f"{bwd:.2f}, Adam {adam:.2f}); chunk update {chunk_ms / FT_CHUNK_PAIRS:.2f} ms per "
+          f"pair over {FT_CHUNK_PAIRS}; {prof['kernels']} kernels per update, busy "
+          f"{100 * prof['busy_share']:.1f} %; peak {peak / 2**30:.2f} GiB above "
+          f"{base / 2**30:.2f} GiB; {syncs} host syncs", flush=True)
+    return out
+
+
+@phase("finetune")
+def finetune_phase(chk, seed, out_dir):
+    """Online finetuning on the card: each kernel's Function at every
+    finetuning shape against the plain version's autograd; the CLI with
+    ablation_self_flow_online.yml plus depth finetuning in both executions;
+    one update on the card against the CPU; the times."""
+    cases = ft_cases(chk)
+    errs = ft_kernel_checks(cases)
+    rows, sums = ft_kernel_times(cases)
+    # the networks at PyTorch's defaults from here on: cuDNN's TF32
+    # convolutions on, float32 matmuls in float32 (the geometry's highp)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cli = {}
+        for execution, frames in (("frame", RUN_FRAMES), ("scan", SCAN_FRAMES)):
+            r = ft_cli_run(seed, execution, frames)
+            cli[execution] = ft_check_cli(r, execution, frames)
+        from dfvo_torch.utils import ConfigLoader
+
+        cfg = ConfigLoader().merge_cfg([CFG, ABLATION_CFG])
+        cfg.online_finetune.depth.enable = True
+        parity = ft_card_vs_cpu(seed, cfg)
+        times = ft_update_times(seed, cfg, out_dir)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return {"kernel_errs": errs, "kernel_rows": rows, "kernel_sums": sums, "cli": cli,
+            "card_vs_cpu": parity, "update": times}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke", "chip_smoke.json"))
@@ -1694,6 +2269,7 @@ def main():
     tracking = tracking_phase(fe, variables, scenes, frame, out_dir)
     run = run_phase(SEED, smi)
     scan = scan_phase(SEED, out_dir)
+    finetune = finetune_phase(chk, SEED, out_dir)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -1708,6 +2284,8 @@ def main():
          "variant": MAIN_VARIANT[name], "launches": launches[name],
          "launches_cli": run["launches"][name],
          "launches_scan": scan["launches"][name],
+         "launches_finetune": sum(finetune["cli"][x]["launches_finetune"][name]
+                                  for x in ("frame", "scan")),
          "launches_per_call": sums[name]["launches_per_call"],
          "max_abs_err": chk.max_abs_err[name],
          "ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],
@@ -1722,7 +2300,7 @@ def main():
         "max_abs_err_f32": chk.max_abs_err_f32,
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
-        "tracking": tracking, "run": run, "scan": scan,
+        "tracking": tracking, "run": run, "scan": scan, "finetune": finetune,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
@@ -1752,6 +2330,14 @@ def main():
         "oracle_worst_t_of_t", "f32_card_vs_cpu")} | {"chunk_step": {
             name: {k: v for k, v in r.items() if k != "top"}
             for name, r in scan["chunk_step"].items()}}}))
+    print(json.dumps({"finetune": {
+        "update": {k: v for k, v in finetune["update"].items() if k != "top"},
+        "cli": finetune["cli"], "card_vs_cpu": finetune["card_vs_cpu"],
+        "kernel_errs": finetune["kernel_errs"], "kernel_sums": finetune["kernel_sums"],
+        "df_vo_ms_per_frame_without_finetuning": {
+            "frame": run["timer_mean_ms"]["DF-VO"],
+            "scan": scan["ms_per_tracked_frame"]["DF-VO"]},
+        "nvidia_smi": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

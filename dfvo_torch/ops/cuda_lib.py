@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from .kernel_grad import records_grad
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "dfvo_torch_kernels"
@@ -152,13 +154,16 @@ def stream_of(t):
 
 
 def forbid_grad(name, *tensors):
-    """Raise when autograd is recording and an input requires grad: the
-    kernels have no backward yet, and their outputs carry no ``grad_fn``,
-    so a caller's gradient would be dropped without an error."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    """Raise when autograd is recording and an input requires grad: a raw
+    kernel wrapper records no gradient (its output carries no ``grad_fn``,
+    so a caller's gradient would be dropped without an error). The
+    dispatchers ``correlation``, ``reg_dist_filter`` and ``head_conv`` call
+    it through their autograd Functions, which run it unrecorded."""
+    if records_grad(*tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward pass (ROADMAP queue 2); "
-            "call it under torch.no_grad() or with inputs that do not require grad"
+            f"{name}: the raw CUDA kernel wrapper has no backward pass; call it under "
+            "torch.no_grad(), or call the op's dispatcher, whose autograd Function "
+            "differentiates the plain version"
         )
 
 

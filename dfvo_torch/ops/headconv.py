@@ -11,26 +11,33 @@ Monodepth2's disparity heads (3x3, Cout = 1, reflect-padded by the caller).
   ``tensor_core`` (bf16, Cin in {16, 32, 64, 128}, Cout <= 2,
   k in {3, 5, 7}, 16-byte aligned pixels: all 14 heads of the main path)
   and ``cuda_core`` (float32, Cin = 3, unaligned bases, Cout 3-4, k = 1).
-* ``head_conv``: plain on the CPU, the kernel on a CUDA device.
+* ``head_conv``: plain on the CPU, the kernel on a CUDA device; through
+  :class:`HeadConvFunction` when a gradient is recorded, whose backward is
+  the VJP of ``head_conv_plain`` with respect to x, the kernel and the
+  bias (the JAX package's ``_hc_bwd``).
 """
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .correlation import acc_dtype
+from .kernel_grad import kernel_function, records_grad
 
 
 def head_conv_plain(x, kernel, bias=None, prepadded=False):
     """[N,H,W,Cin] x [k,k,Cin,Cout] -> [N,H',W',Cout] in x's dtype.
 
     'Same' zero padding, or ``prepadded=True`` for an input already padded
-    by (k-1)//2 per side (a VALID conv)."""
+    by (k-1)//2 per side (a VALID conv). Computed in float32 (float64 for a
+    float64 input)."""
     k = kernel.shape[0]
     pad = 0 if prepadded else (k - 1) // 2
+    acc = acc_dtype(x.dtype)
     y = F.conv2d(
-        x.permute(0, 3, 1, 2).float(),
-        kernel.permute(3, 2, 0, 1).float(),
-        None if bias is None else bias.float(),
+        x.permute(0, 3, 1, 2).to(acc),
+        kernel.permute(3, 2, 0, 1).to(acc),
+        None if bias is None else bias.to(acc),
         padding=pad,
     )
     return y.permute(0, 2, 3, 1).to(x.dtype)
@@ -110,9 +117,15 @@ head_conv_cuda.launches = 0
 head_conv_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
 
 
+HeadConvFunction = kernel_function("HeadConvFunction", head_conv_cuda, head_conv_plain, 3)
+
+
 def head_conv(x, kernel, bias=None, prepadded=False):
     """Small-Cout conv, stride 1: plain on the CPU, the CUDA kernel on a
-    CUDA device."""
+    CUDA device; through :class:`HeadConvFunction` when a gradient is
+    recorded."""
+    if records_grad(x, kernel, bias):
+        return HeadConvFunction.apply(x, kernel, bias, prepadded)
     if x.device.type == "cpu":
         return head_conv_plain(x, kernel, bias, prepadded)
     return head_conv_cuda(x, kernel, bias, prepadded)

@@ -17,17 +17,24 @@ Regularization), and the two steps are one op:
   ``reg_scale_filter_plain``; the CPU path and the oracle of the kernel.
 * ``reg_dist_filter_cuda``: the kernel ``csrc/regfilter.cu``, which
   normalises in registers as it filters.
-* ``reg_dist_filter``: plain on the CPU, the kernel on a CUDA device.
+* ``reg_dist_filter``: plain on the CPU, the kernel on a CUDA device;
+  through :class:`RegDistFilterFunction` when a gradient is recorded, whose
+  backward is the VJP of ``reg_dist_filter_plain`` with respect to the raw
+  logits, the flow and the four parameters (the JAX package's
+  normalisation differentiated by autodiff, then ``_rf_bwd``).
 """
 
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .correlation import acc_dtype
+from .kernel_grad import kernel_function, records_grad
 
 
 def reg_scale_filter_plain(dist, flow, wx, bx, wy, by, k):
-    """Tap-major weighted unfold, accumulated in float32.
+    """Tap-major weighted unfold, accumulated in float32 (float64 for a
+    float64 flow).
 
     Args:
         dist: [N,H,W,k²] confidence (ky-major offsets).
@@ -41,8 +48,9 @@ def reg_scale_filter_plain(dist, flow, wx, bx, wy, by, k):
     """
     n, h, w, kk = dist.shape
     p = (k - 1) // 2
-    fp = F.pad(flow.float(), (0, 0, p, p, p, p))
-    dist_t = dist.permute(0, 3, 1, 2).float()  # [N,k²,H,W]
+    acc = acc_dtype(flow.dtype)
+    fp = F.pad(flow.to(acc), (0, 0, p, p, p, p))
+    dist_t = dist.permute(0, 3, 1, 2).to(acc)  # [N,k²,H,W]
     shx = torch.stack(
         [fp[:, j // k : j // k + h, j % k : j % k + w, 0] for j in range(kk)],
         dim=1,
@@ -51,10 +59,10 @@ def reg_scale_filter_plain(dist, flow, wx, bx, wy, by, k):
         [fp[:, j // k : j // k + h, j % k : j % k + w, 1] for j in range(kk)],
         dim=1,
     )
-    wxv = wx.reshape(1, kk, 1, 1).float()
-    wyv = wy.reshape(1, kk, 1, 1).float()
-    accx = bx.reshape(()).float() + torch.sum(dist_t * wxv * shx, dim=1)
-    accy = by.reshape(()).float() + torch.sum(dist_t * wyv * shy, dim=1)
+    wxv = wx.reshape(1, kk, 1, 1).to(acc)
+    wyv = wy.reshape(1, kk, 1, 1).to(acc)
+    accx = bx.reshape(()).to(acc) + torch.sum(dist_t * wxv * shx, dim=1)
+    accy = by.reshape(()).to(acc) + torch.sum(dist_t * wyv * shy, dim=1)
     inv = 1.0 / torch.sum(dist_t, dim=1)
     return torch.stack([accx * inv, accy * inv], dim=-1).to(flow.dtype)
 
@@ -118,9 +126,16 @@ reg_dist_filter_cuda.launches = 0
 reg_dist_filter_cuda.variant_launches = {"async_tile": 0}
 
 
+RegDistFilterFunction = kernel_function(
+    "RegDistFilterFunction", reg_dist_filter_cuda, reg_dist_filter_plain, 6)
+
+
 def reg_dist_filter(raw, flow, wx, bx, wy, by, k):
     """Normalise the raw confidence and filter the flow with it: plain on
-    the CPU, the CUDA kernel on a CUDA device."""
+    the CPU, the CUDA kernel on a CUDA device; through
+    :class:`RegDistFilterFunction` when a gradient is recorded."""
+    if records_grad(raw, flow, wx, bx, wy, by):
+        return RegDistFilterFunction.apply(raw, flow, wx, bx, wy, by, k)
     if raw.device.type == "cpu":
         return reg_dist_filter_plain(raw, flow, wx, bx, wy, by, k)
     return reg_dist_filter_cuda(raw, flow, wx, bx, wy, by, k)

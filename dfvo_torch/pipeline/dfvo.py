@@ -15,7 +15,10 @@ Per tracked frame the loop reads the device twice: the PnP decision inside
 ``tracking_step`` and the relative pose. The drawer, when it is on, adds
 one batched download of what it draws (the tracking mode included). The
 scan execution reads the device twice per chunk: the chunk's decision
-tensors and its poses.
+tensors and its poses. Online finetuning (``online_finetune.enable``,
+``pipeline/finetune.py``) adds no read to either: after each tracked frame,
+or after each chunk, it updates the float32 masters on the device from the
+pose still on the device, and refreshes the inference copy there.
 """
 
 import os
@@ -33,7 +36,6 @@ from .frontend import DeepFrontend
 from .tracking import _ITEM9, TrackingConfig, tracking_step
 
 _MODE_NAMES = {0: "Const.", 1: "Ess. Mat.", 2: "PnP", 3: "DeepPose"}
-_ITEM8 = "ROADMAP queue 1 item 8, 'Online finetuning'"
 _ITEM11 = "ROADMAP queue 1 item 11, 'Scale-out and state'"
 # the frame step's outputs that the drawer reads
 _DRAWN = ("mode", "kp_ref", "kp_cur", "kp_valid", "inliers", "depth_cur", "flow_fwd",
@@ -127,7 +129,6 @@ def _check_ported(cfg):
                 "tpu.execution: scan does not support " + ", ".join(unsupported)
                 + " (these need per-frame host state; use tpu.execution: frame)")
     unported = (
-        (bool(cfg.online_finetune.enable), "online_finetune.enable", _ITEM8),
         (bool(cfg.deep_pose.enable), "deep_pose.enable", _ITEM9),
         (str(cfg.tracking_method) == "deep_pose", "tracking_method: deep_pose", _ITEM9),
     )
@@ -189,6 +190,18 @@ class DFVO:
             from .frame_drawer import FrameDrawer
 
             self.drawer = FrameDrawer(self.cfg)
+
+        # online finetuning: float32 masters and the Adam state on the device
+        self.finetuner = None
+        if self.cfg.online_finetune.enable:
+            from .finetune import OnlineFinetuner
+
+            self.finetuner = OnlineFinetuner(self.frontend, self.cfg)
+            self.variables = {net: {k: v.to(self.device) for k, v in sd.items()}
+                              for net, sd in self.variables.items()}
+            self.infer_variables = self.frontend.prepare_variables(self.variables)
+            self.opt_state = self.finetuner.init_state(self.variables, K.mat, K.inv_mat)
+            self.finetune_cnt = 0
 
     def _upload(self, arr, dtype=None):
         """A host array on the device without a host synchronisation."""
@@ -268,6 +281,13 @@ class DFVO:
             self.ref_data["motion"] = out["pose"]
             self.cur_data["raw_depth_dev"] = out["depth_cur_raw"]
             self.cur_data["vo_out"] = out
+            if self._finetunes():
+                with self.timers.scope("finetune", "DF-VO"):
+                    self.variables, self.opt_state, _ = self.finetuner.update(
+                        self.variables, self.opt_state, _to_unit_float(self.ref_data["img_dev"]),
+                        _to_unit_float(img_dev), out["pose"])
+                    self.infer_variables = self.frontend.prepare_variables(self.variables)
+                self.finetune_cnt += 1
             if drawn is not None:
                 with self.timers.scope("visualization", "DF-VO"):
                     self.drawer.draw_frame(self, drawn)
@@ -282,6 +302,11 @@ class DFVO:
         }
         self.tracking_stage += 1
         return mode
+
+    def _finetunes(self):
+        """Whether the next frame pair gets a finetuning update."""
+        return self.finetuner is not None and (
+            self.finetuner.num_frames is None or self.finetune_cnt < self.finetuner.num_frames)
 
     def _frame_ids(self, start_frame, num_frames):
         end = len(self.dataset)
@@ -336,13 +361,19 @@ class DFVO:
         chunk is padded with its last frame, whose key it repeats. As in
         the JAX package, the trajectory starts at the GT's first pose when
         a GT is configured (the frame execution starts at the identity),
-        and the drawer draws the trajectory map only."""
+        and the drawer draws the trajectory map only. With online
+        finetuning, one update per frame pair runs after each chunk, over
+        the previous chunk's last frame and this chunk, from the poses on
+        the device; the next chunk's inference uses the updated weights, so
+        a chunk's own inference runs on the weights of the chunk before."""
         from .scan_runner import ScanRunner
 
         print("==> Start DF-VO (scan execution)")
         print(f"==> Running sequence: {self.cfg.seq}")
         runner = ScanRunner(self.cfg, frontend=self.frontend)
         chunk = runner.chunk
+        if self.finetuner is not None:
+            chunk_update = self.finetuner.make_chunk_update_fn()
         frame_ids = self._frame_ids(start_frame, num_frames)
         if not frame_ids:
             print("=> Finish!")
@@ -381,10 +412,22 @@ class DFVO:
                     id_pad = ids + [ids[-1]] * (chunk - len(ids))
                     keys = prng.chunk_keys(self.cfg.seed, id_pad).astype(np.int64)
                     imgs_dev, keys_dev = self._upload(imgs), self._upload(keys)
+                prev_img = carry[0]  # the previous chunk's last frame, on the device
                 with self.timers.scope("vo_step", "DF-VO"):
                     poses, _, carry = runner._chunk_step(
                         self.infer_variables, imgs_dev, carry, keys_dev, self.K, self.K_inv)
                     rel = poses.to("cpu", torch.float64).numpy()[: len(ids)]
+                if self._finetunes():
+                    with self.timers.scope("finetune", "DF-VO"):
+                        n_active = len(ids)
+                        if self.finetuner.num_frames is not None:
+                            n_active = min(n_active,
+                                           self.finetuner.num_frames - self.finetune_cnt)
+                        self.variables, self.opt_state, _ = chunk_update(
+                            self.variables, self.opt_state,
+                            torch.cat([prev_img[None], imgs_dev], dim=0), poses, n_active)
+                        self.infer_variables = self.frontend.prepare_variables(self.variables)
+                    self.finetune_cnt += n_active
                 prev = self.global_poses[frame_ids[c0]].pose
                 for j, i in enumerate(ids):
                     prev = prev @ rel[j]
@@ -412,8 +455,10 @@ class DFVO:
         raise NotImplementedError(f"DFVO.load_state is not ported yet ({_ITEM11})")
 
     def save_results(self):
-        """Write ``<seq>.txt`` (and ``map.png`` with the drawer) to the
-        result directory, print the timers; returns {scope: mean s}."""
+        """Write ``<seq>.txt`` (and ``map.png`` with the drawer, and the
+        finetuned variables in ``finetuned_model/`` with
+        ``online_finetune.save_model``) to the result directory, print the
+        timers; returns {scope: mean s}."""
         result_dir = self.cfg.directory.result_dir
         mkdir_if_not_exists(result_dir)
         print(f"The result is saved in [{result_dir}].")
@@ -421,4 +466,10 @@ class DFVO:
             self.drawer.save_traj_map(os.path.join(result_dir, "map.png"))
         self.dataset.save_result_traj(os.path.join(result_dir, f"{self.cfg.seq}.txt"),
                                       self.global_poses)
+        if self.finetuner is not None and self.cfg.online_finetune.save_model:
+            from ..utils.checkpoint import save_variables
+
+            ckpt_dir = os.path.join(result_dir, "finetuned_model")
+            save_variables(ckpt_dir, self.variables, self.opt_state)
+            print(f"Finetuned model is saved in [{ckpt_dir}].")
         return self.timers.time_analysis()

@@ -5,6 +5,9 @@ geometry-ready float32 tensors come out on the same device. Network
 variables are plain state dicts, passed to every call as in the JAX
 package, and applied with ``torch.func.functional_call`` to module
 templates that hold no weights of their own (built on the meta device).
+Inference (``infer``, ``infer_chunk``) records no gradient; online
+finetuning applies the networks with autograd through ``flow_apply`` and
+``depth_apply``.
 """
 
 import os
@@ -155,19 +158,42 @@ class DeepFrontend:
             print(f"==> Initialize {self.flow_kind} flow net with [{flow_path}]")
         return variables
 
+    def trainable_keys(self, net):
+        """The keys of ``net``'s ("depth" or "flow") parameters: the tensors
+        that the JAX package keeps in its Flax ``params`` collection; the
+        batch-norm running statistics are buffers and are left out."""
+        module = {"depth": self.depth_net, "flow": self.flow_net}[net]
+        return [k for k, _ in module.named_parameters()]
+
+    @torch.no_grad()
     def prepare_variables(self, variables):
-        """Move variables to the device and cast float32 tensors to the
-        network dtype (once, after loading)."""
+        """The inference copy of the variables: on the device, float32
+        tensors cast to the network dtype, none requiring grad. After
+        loading, and after each finetuning update (from masters already on
+        the device, without a host round trip; a float32 master is shared,
+        not copied)."""
 
         def prep(t):
             if t.dtype == torch.float32:
                 t = t.to(self.dtype)
-            return t.to(self.device)
+            return t.to(self.device).detach()
 
         return {
             net: {k: prep(v) for k, v in sd.items()}
             for net, sd in variables.items()
         }
+
+    def flow_apply(self, flow_vars, img1, img2):
+        """LiteFlowNet on two independent [N x H x W x 3] batches
+        (``pair_mode="two"``), with autograd: {1..5} flows in float32."""
+        flows = functional_call(self.flow_net, flow_vars, (img1, img2), {"pair_mode": "two"},
+                                strict=True)
+        return {s: f.float() for s, f in flows.items()}
+
+    def depth_apply(self, depth_vars, imgs):
+        """Monodepth2 on [N x H x W x 3] images, with autograd: the
+        network's output dict (``depth``, ``disp``, ``disps`` {0..3})."""
+        return functional_call(self.depth_net, depth_vars, (imgs,), strict=True)
 
     def _depth(self, variables, imgs):
         out = functional_call(self.depth_net, variables["depth"], (imgs,),

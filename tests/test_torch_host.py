@@ -430,7 +430,6 @@ def test_dfvo_defaults_to_cuda_and_raises_without_it(layouts, monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ("online_finetune.enable=True", "item 8"),
     ("deep_pose.enable=True", "item 9"),
     ("tracking_method=deep_pose", "item 9"),
 ])

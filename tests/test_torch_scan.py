@@ -376,7 +376,9 @@ def test_cli_scan_execution_writes_trajectory(kitti_offset, tmp_path):
     (lambda c: c.deep_pose.__setitem__("enable", True), ValueError, "deep_pose.enable"),
     (lambda c: setattr(c, "tracking_method", "deep_pose"), ValueError,
      "tracking_method: deep_pose"),
-    (lambda c: c.online_finetune.__setitem__("enable", True), NotImplementedError, "item 8"),
+    (lambda c: (c.online_finetune.__setitem__("enable", True),
+                c.online_finetune.depth.update(enable=True, pose_src="deep_pose")),
+     ValueError, "needs the pose CNN"),
     (lambda c: c.scale_recovery.__setitem__("method", "iterative"), NotImplementedError,
      "item 9"),
     (lambda c: c.tpu.__setitem__("execution", "sideways"), ValueError, "execution"),
