@@ -24,7 +24,8 @@ seconds, none caught:
 5. parity: the float32 slice on the card against the plain slice on the
    CPU, and the bfloat16 slice with the kernels against the same slice with
    the three CUDA wrappers swapped for their plain versions.
-6. times: CUDA-event medians of `infer` and `infer_chunk` per frame, and of
+6. times: CUDA-event medians of `infer` and `infer_chunk` per frame, and
+   device ms (torch.profiler, each trace's device events counted) of
    every kernel at every main-path shape (N = 64 LiteFlowNet, N = 32 depth,
    and level 2 at N = 2) beside its plain version, its bound and, for the
    head conv, one cuDNN `F.conv2d` call (the yardstick; the port never
@@ -93,16 +94,40 @@ seconds, none caught:
    the CPU's own change under a 1e-6 change of the image; and the update's
    CUDA-event ms split into forward, backward and Adam, the chunk update
    per pair, kernels, busy share, host syncs (none) and peak memory.
+14. extend: the extended paper's kitti_stereo_train_extend.yml merged on
+   the default, at its 370x1226 (LiteFlowNet and the depth network fed at
+   384x1248). Each kernel against its plain version at every shape it gets
+   there (N = 2 and 64; the disparity heads at N = 1 and 32) and their
+   times per infer_chunk call beside the bounds; the CLI with flow
+   finetuning (scales 1-5), rigid-flow keypoints and iterative scale in
+   frame execution over EXT_FRAMES frames and in scan execution over
+   EXT_SCAN_FRAMES frames (one full chunk of 32 and a padded one): finite
+   poses, one update per tracked frame, launches (inference + 5 / 5 / 10
+   float32 launches per update) and host reads (3 per frame with the
+   drawer; 2 per chunk) under CUDA sync debug mode, the timer scopes and
+   peak memory. Then the iterative step (iterative scale, the E and PnP
+   trackers' iterative keypoints) on the track scenes at 370x1226 on the
+   card against the CPU, with one host sync; CUDA-event ms, kernels, busy
+   share and peak memory of that step, of frame_step and of one update;
+   bench.py's oracle drive through one iterative chunk_step (every frame
+   by E, held to the GT; one host sync; timed and profiled), through the
+   same chunk with the bestN and sampled selectors, and its first
+   SCAN_PARITY_PAIRS pairs' tracking on the card against the CPU; and the
+   pose CNN through EXT_POSE_FRAMES frames of frame execution, once with
+   tracking_method: deep_pose (mode 3, one host read per frame) and once
+   with depth consistency under hybrid tracking (a depth-consistency map
+   per frame, two reads).
 
 Weights and inputs are drawn from SEED.
 
 It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
-finetuning, a JSON line of the kernels (launches from the slice phase,
-from the CLI run as launches_cli, from the scan execution as
-launches_scan and from the finetuning updates of both CLI runs as
-launches_finetune),
+finetuning, a JSON line of the extend phase, a JSON line of the kernels
+(launches from the slice phase, from the CLI run as launches_cli, from the
+scan execution as launches_scan, from the finetuning updates of both CLI
+runs as launches_finetune and from the extend phase's two CLI runs as
+launches_extend; their times at 370x1226 as at_370x1226),
 the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result, when no CUDA device is available
 or any phase fails.
@@ -124,22 +149,33 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "options", "examples", "default_configuration.yml")
 
-# main-path shapes at 192x640 (N = 2 in infer, 2(M-1) = 64 in infer_chunk)
+# main-path shapes (N = 2 in infer, 2(M-1) = 64 in infer_chunk)
 LFN_BATCHES = (2, 64)
 DEPTH_BATCHES = (1, 32)
-# (level, n-independent f1/f2 shape [H, W, C]); levels 3 and 2 are the
-# stride-2 subsamples of [48,160,64] and [96,320,64]
-CORR_SHAPES = ((6, (6, 20, 192)), (5, (12, 40, 128)), (4, (24, 80, 96)),
-               (3, (24, 80, 64)), (2, (48, 160, 64)))
-REG_SHAPES = ((2, (96, 320), 7), (3, (48, 160), 5), (4, (24, 80), 5),
-              (5, (12, 40), 3), (6, (6, 20), 3))
-# (name, [H, W, Cin], Cout, k, prepadded)
-LFN_HEADS = tuple((f"main_3 L{lvl}", (h, w, 32), 2, k, False)
-                  for lvl, (h, w), k in REG_SHAPES)
-DEPTH_HEADS = (("dispconv_0", (194, 642, 16), 1, 3, True),
-               ("dispconv_1", (98, 322, 32), 1, 3, True),
-               ("dispconv_2", (50, 162, 64), 1, 3, True),
-               ("dispconv_3", (26, 82, 128), 1, 3, True))
+
+
+def main_path_shapes(flow_hw, depth_hw):
+    """The kernels' shapes on the networks' path for LiteFlowNet's feed
+    size and the depth network's: (CORR_SHAPES, REG_SHAPES, LFN_HEADS,
+    DEPTH_HEADS). Level l of LiteFlowNet is at 1/2^(l-1) of its feed.
+    CORR: (level, n-independent f1/f2 shape [H, W, C]); levels 3 and 2 are
+    the stride-2 subsamples of the level 3 and level 2 maps. REG: (level,
+    [H, W], k). Heads: (name, [H, W, Cin], Cout, k, prepadded); the
+    disparity heads see the reflect-padded map."""
+    lv = {lvl: (flow_hw[0] >> (lvl - 1), flow_hw[1] >> (lvl - 1)) for lvl in range(2, 7)}
+    corr = ((6, (*lv[6], 192)), (5, (*lv[5], 128)), (4, (*lv[4], 96)), (3, (*lv[4], 64)),
+            (2, (*lv[3], 64)))
+    reg = tuple((lvl, lv[lvl], k) for lvl, k in ((2, 7), (3, 5), (4, 5), (5, 3), (6, 3)))
+    lfn_heads = tuple((f"main_3 L{lvl}", (h, w, 32), 2, k, False) for lvl, (h, w), k in reg)
+    depth_heads = tuple((f"dispconv_{s}", ((depth_hw[0] >> s) + 2, (depth_hw[1] >> s) + 2, c),
+                         1, 3, True) for s, c in enumerate((16, 32, 64, 128)))
+    return corr, reg, lfn_heads, depth_heads
+
+
+# at 192x640 (the default configuration): CORR_SHAPES L6 [6, 20, 192] ..
+# L2 [48, 160, 64], REG_SHAPES L2 [96, 320] k7 .. L6 [6, 20] k3, the
+# disparity heads from [194, 642, 16]
+CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS = main_path_shapes((192, 640), (192, 640))
 SEED = 0
 INFER_PAIRS = 8
 CHUNK_FRAMES = 33
@@ -194,6 +230,25 @@ FT_F32_LIMITS = {"loss_rel": 1e-4, "flow_grad_rel": 1e-3, "depth_grad_rel": 5e-2
                  "flow_same_sign": 0.99, "depth_same_sign": 0.99}
 FT_TF32_LIMITS = {"loss_rel": 1e-2, "flow_grad_rel": 5e-2, "depth_grad_rel": 0.5,
                   "flow_same_sign": 0.95, "depth_same_sign": 0.8}
+# the extended paper's configuration (extend phase): kitti_stereo_train_extend.yml
+# merged on the default, at its 370x1226
+EXTEND_CFG = os.path.join(ROOT, "options", "examples", "kitti_stereo_train_extend.yml")
+EXT_SIZE = (370, 1226)
+# frame execution: 5 tracked frames and updates; scan execution: one full
+# chunk of 32 and a padded second one
+EXT_FRAMES = 6
+EXT_SCAN_FRAMES = 1 + 32 + 5
+# the pose CNN's frame runs (deep_pose tracking; depth consistency)
+EXT_POSE_FRAMES = 4
+# the extend configuration finetunes the flow only: LiteFlowNet's 5 levels
+# and 10 flow-delta heads per update
+EXT_FT_PER_UPDATE = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 10}
+# host reads of the pose CNN's frame runs (drawer off): deep_pose tracking
+# reads the pose only; hybrid tracking the PnP decision and the pose
+EXT_POSE_READS = {"deep_pose": 1, "hybrid": 2}
+# the iterative option set held on the card against the CPU (extend phase)
+EXT_ITERATIVE = dict(scale_method="iterative", e_iterative_kp=True, scale_iterative_kp=True,
+                     pnp_iterative_kp=True)
 # the tracking scenes' intrinsics (tests/test_pipeline.py)
 TRACK_K = np.array([[370.0, 0, 320.0], [0, 371.0, 96.0], [0, 0, 1.0]], np.float32)
 # the variant each kernel's bf16 main-path launches must take
@@ -344,35 +399,9 @@ def kernels_phase(chk):
     from dfvo_torch.ops.correlation import correlation_plain
     from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
     from dfvo_torch.ops.pallas_corr import correlation_cuda
-    from dfvo_torch.ops.regfilter import reg_dist_filter_cuda, reg_dist_filter_plain
+    from dfvo_torch.ops.regfilter import reg_dist_filter_cuda
 
-    def check_reg(label, n, h, w, k, raw=None, prep=None, main_path=True):
-        # the raw moduleDist logits, as the path gives them
-        raw = chk.randn((n, h, w, k * k), 2.0) if raw is None else raw
-        flow = chk.randn((n, h, w, 2), 4.0)
-        wts = [chk.randn((1, k * k, 1, 1)), chk.randn((1,)),
-               chk.randn((1, k * k, 1, 1)), chk.randn((1,))]
-        chk.compare("reg_dist_filter", label,
-                    lambda d, f, *p: reg_dist_filter_cuda(d, f, *p, k),
-                    lambda d, f, *p: reg_dist_filter_plain(d, f, *p, k),
-                    (raw, flow, *wts), prep=prep, main_path=main_path)
-
-    for n in LFN_BATCHES:
-        for lvl, (h, w, c) in CORR_SHAPES:
-            f1, f2 = chk.randn((n, h, w, c)), chk.randn((n, h, w, c))
-            if lvl <= 3:
-                # as on the path: f1 is the [::2, ::2] view of the full map
-                f1 = chk.randn((n, 2 * h, 2 * w, c))[:, ::2, ::2]
-            chk.compare("correlation", f"L{lvl} {[n, h, w, c]}",
-                        lambda a, b: correlation_cuda(a, b, 3, 1),
-                        lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2))
-        for lvl, (h, w), k in REG_SHAPES:
-            check_reg(f"L{lvl} k{k} {[n, h, w]}", n, h, w, k)
-        for name, hwc, cout, k, pre in LFN_HEADS:
-            check_head(chk, name, n, hwc, cout, k, pre, head_conv_cuda, head_conv_plain)
-    for n in DEPTH_BATCHES:
-        for name, hwc, cout, k, pre in DEPTH_HEADS:
-            check_head(chk, name, n, hwc, cout, k, pre, head_conv_cuda, head_conv_plain)
+    check_main_path_shapes(chk, (CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS))
     # off the main path (the cuda_core variants in bf16 too): channel counts
     # that do not fill 16-byte vectors and a base address that is not
     # 16-byte aligned take the kernels' scalar loops
@@ -393,10 +422,10 @@ def kernels_phase(chk):
     # raw and flow one element past an aligned address (unaligned spans and
     # element-wise flow staging), and logits of +-300 where every tap but the
     # minimum underflows
-    check_reg("ragged [2, 13, 41] k7", 2, 13, 41, 7, main_path=False)
-    check_reg("unaligned [2, 24, 80] k5", 2, 24, 80, 5, prep=misaligned, main_path=False)
+    check_reg(chk, "ragged [2, 13, 41] k7", 2, 13, 41, 7, main_path=False)
+    check_reg(chk, "unaligned [2, 24, 80] k5", 2, 24, 80, 5, prep=misaligned, main_path=False)
     big = torch.sign(chk.randn((2, 12, 40, 49))) * chk.rand((2, 12, 40, 49), 300.0, 305.0)
-    check_reg("+-300 [2, 12, 40] k7", 2, 12, 40, 7, raw=big, main_path=False)
+    check_reg(chk, "+-300 [2, 12, 40] k7", 2, 12, 40, 7, raw=big, main_path=False)
     # the cost volume's other window (HD3, off this path) and its stride-2
     # form (tensor_core in bf16)
     f1, f2 = chk.randn((2, 24, 80, 64)), chk.randn((2, 24, 80, 64))
@@ -432,6 +461,50 @@ def kernels_phase(chk):
             fail(f"{name}: {fn.launches - before} launches around the grad refusal, expected 1")
     print("  correlation, reg_dist_filter, head_conv: CUDA inputs that require grad refused "
           "while autograd records (no launch); launched under no_grad")
+
+
+def check_reg(chk, label, n, h, w, k, raw=None, prep=None, main_path=True):
+    """The regularization filter from the raw moduleDist logits, as the
+    path gives them, against its plain version."""
+    from dfvo_torch.ops.regfilter import reg_dist_filter_cuda, reg_dist_filter_plain
+
+    raw = chk.randn((n, h, w, k * k), 2.0) if raw is None else raw
+    flow = chk.randn((n, h, w, 2), 4.0)
+    wts = [chk.randn((1, k * k, 1, 1)), chk.randn((1,)),
+           chk.randn((1, k * k, 1, 1)), chk.randn((1,))]
+    chk.compare("reg_dist_filter", label,
+                lambda d, f, *p: reg_dist_filter_cuda(d, f, *p, k),
+                lambda d, f, *p: reg_dist_filter_plain(d, f, *p, k),
+                (raw, flow, *wts), prep=prep, main_path=main_path)
+
+
+def check_main_path_shapes(chk, shapes, lfn_batches=LFN_BATCHES, depth_batches=DEPTH_BATCHES,
+                           suffix=""):
+    """Each kernel against its plain version at every main-path shape of
+    ``shapes`` (``main_path_shapes``), at each batch of the path."""
+    from dfvo_torch.ops.correlation import correlation_plain
+    from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+
+    corr_shapes, reg_shapes, lfn_heads, depth_heads = shapes
+    for n in lfn_batches:
+        for lvl, (h, w, c) in corr_shapes:
+            f1, f2 = chk.randn((n, h, w, c)), chk.randn((n, h, w, c))
+            if lvl <= 3:
+                # as on the path: f1 is the [::2, ::2] view of the full map
+                f1 = chk.randn((n, 2 * h, 2 * w, c))[:, ::2, ::2]
+            chk.compare("correlation", f"L{lvl} {[n, h, w, c]}{suffix}",
+                        lambda a, b: correlation_cuda(a, b, 3, 1),
+                        lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2))
+        for lvl, (h, w), k in reg_shapes:
+            check_reg(chk, f"L{lvl} k{k} {[n, h, w]}{suffix}", n, h, w, k)
+        for name, hwc, cout, k, pre in lfn_heads:
+            check_head(chk, name + suffix, n, hwc, cout, k, pre, head_conv_cuda,
+                       head_conv_plain)
+    for n in depth_batches:
+        for name, hwc, cout, k, pre in depth_heads:
+            check_head(chk, name + suffix, n, hwc, cout, k, pre, head_conv_cuda,
+                       head_conv_plain)
 
 
 def check_head(chk, name, n, hwc, cout, k, pre, kernel_fn, plain_fn, prep=None,
@@ -676,29 +749,81 @@ def time_cuda(fn, reps, rounds=5):
     return statistics.median(samples)
 
 
-def device_ms(fn, reps=20):
-    """Device time per call: the device time of every kernel that ``reps``
-    calls launch (torch.profiler), summed, over ``reps``. Unlike a CUDA-event
-    interval it leaves out the gaps while the host launches the next call,
-    which set the pace of small shapes on a slow host."""
+# A torch.profiler trace on the card drops the first device events of
+# the trace: none early in a process, 3 a trace a few minutes in, up to
+# 15 late in this script, and now and then many more
+# (scripts/profiler_trace_check.py; PERF.md section 6). Each trace
+# therefore opens with spin kernels, which its sums leave out; while no
+# spin kernel reaches the trace the lead-in doubles. The rarer larger
+# losses are caught by counting (device_ms, profile_call).
+SPIN = "spin_kernel"
+
+
+def profiled(fn, lead_in=32, **kw):
+    """(profile, device events without the lead-in, wall ms) of one
+    ``fn()`` under torch.profiler, after ``lead_in`` spin kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    while True:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+            for _ in range(lead_in):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if any(SPIN in e.key for e in events):
+            return prof, [e for e in events if SPIN not in e.key], wall_ms
+        if lead_in >= 1024:
+            fail(f"no spin kernel of a lead-in of {lead_in} reached the trace")
+        lead_in *= 2
+
+
+def trace(fn, calls):
+    """(device ms, device events) of ``calls`` calls of ``fn`` in one
+    trace: the time of every device event, summed, and their number."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, events, _ = profiled(run)
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+# every trace that held another number of device events than its calls
+# launched: (label, calls in the trace, events held, events expected)
+LOST_TRACES = []
+
+
+def device_ms(fn, reps=20, label="call"):
+    """Device time per call: the device time of every kernel that ``reps``
+    calls launch (torch.profiler), summed, over ``reps``. Unlike a CUDA-event
+    interval it leaves out the gaps while the host launches the next call,
+    which set the pace of small shapes on a slow host.
+
+    A trace counts only when it holds every device event of its calls:
+    ``reps`` times the events of one call, on which two of three traces of
+    one call must agree. A trace that holds another number is recorded in
+    ``LOST_TRACES`` and taken again, four times at most; then the script
+    fails. No other measure stands in for it."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
-            return total / 1e3 / reps
-    # three traces without device activity: time with CUDA events instead
-    # (host gaps included, so an upper bound)
-    print("  (torch.profiler recorded no device time; CUDA-event time instead)")
-    return time_cuda(fn, reps)
+    one = [trace(fn, 1)[1] for _ in range(3)]
+    per_call = max(set(one), key=one.count)
+    if one.count(per_call) < 2 or per_call == 0:
+        fail(f"{label}: three traces of one call held {one} device events")
+    for _ in range(5):
+        ms, events = trace(fn, reps)
+        if events == per_call * reps:
+            return ms / reps
+        LOST_TRACES.append((label, reps, events, per_call * reps))
+        print(f"  ({label}: a trace of {reps} calls held {events} device events, "
+              f"not {per_call * reps}; traced again)", flush=True)
+    fail(f"{label}: five traces of {reps} calls lost device events ({LOST_TRACES[-5:]})")
 
 
 def bound(nbytes, flops, peak_flops):
@@ -710,11 +835,12 @@ def bound(nbytes, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing_cases(chk):
+def timing_cases(chk, shapes=(CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS)):
     """Every kernel at every main-path shape of one `infer_chunk` network
     call (N = 64 LiteFlowNet, N = 32 depth), with its launches in that call,
     and level 2 at N = 2 (`infer`, not in the per-call sums). Inputs in
     bf16, laid out as the path gives them."""
+    corr_shapes, reg_shapes, lfn_heads, depth_heads = shapes
     from dfvo_torch.ops.correlation import correlation_plain
     from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
     from dfvo_torch.ops.pallas_corr import correlation_cuda
@@ -723,7 +849,7 @@ def timing_cases(chk):
     bf = torch.bfloat16
     cases = []
     for n, per_call, levels in ((64, 1, (6, 5, 4, 3, 2)), (2, 0, (2,))):
-        for lvl, (h, w, c) in CORR_SHAPES:
+        for lvl, (h, w, c) in corr_shapes:
             if lvl not in levels:
                 continue
             f1 = chk.randn((n, 2 * h, 2 * w, c) if lvl <= 3 else (n, h, w, c)).to(bf)
@@ -737,7 +863,7 @@ def timing_cases(chk):
                 pfn=lambda f1=f1, f2=f2: correlation_plain(f1, f2, 3, 1), lfn=None,
                 bound=bound(2 * (2 * n * h * w * c + n * h * w * kk),
                             2 * n * h * w * kk * c, PEAK_BF16_TC)))
-        for lvl, (h, w), k in REG_SHAPES:
+        for lvl, (h, w), k in reg_shapes:
             if lvl not in levels:
                 continue
             kk = k * k
@@ -757,10 +883,10 @@ def timing_cases(chk):
                 # bias adds and the division
                 bound=bound(2 * (n * h * w * (kk + 4) + 2 * kk + 2),
                             n * h * w * (11 * kk + 6), PEAK_F32)))
-        heads = [(name, hwc, cout, k, pre, 2 * per_call) for name, hwc, cout, k, pre in LFN_HEADS
+        heads = [(name, hwc, cout, k, pre, 2 * per_call) for name, hwc, cout, k, pre in lfn_heads
                  if int(name.split("L")[1]) in levels]
         if n == 64:
-            heads += [(name, hwc, cout, k, pre, 1) for name, hwc, cout, k, pre in DEPTH_HEADS]
+            heads += [(name, hwc, cout, k, pre, 1) for name, hwc, cout, k, pre in depth_heads]
         for name, (h, w, cin), cout, k, pre, calls in heads:
             nn_ = 32 if name.startswith("dispconv") else n
             x = chk.randn((nn_, h, w, cin)).to(bf)
@@ -791,12 +917,20 @@ def times_phase(chk, fe, variables, imgs):
     print(f"  infer_chunk: {chunk_ms:.3f} ms per {CHUNK_FRAMES}-frame chunk = "
           f"{per_frame_chunk:.3f} ms/frame")
 
+    rows, sums = kernel_times(timing_cases(chk))
+    return infer_ms, per_frame_chunk, rows, sums
+
+
+def kernel_times(cases):
+    """Device ms (torch.profiler) and CUDA-event ms of each case beside its
+    plain version, its library call and its bound; and the sums per
+    `infer_chunk` network call, weighted by the launches at each shape."""
     rows = []
     print("  device ms per call (torch.profiler); event: CUDA-event ms per call "
           "back to back, host gaps included")
     print("  kernel           shape                            ms      event_ms  plain_ms  "
           "library_ms  bound_ms (by)           share  launches/call")
-    for case in timing_cases(chk):
+    for case in cases:
         # CUDA events in turns: plain, library, kernel, kernel, library, plain
         p1 = time_cuda(case["pfn"], reps=5, rounds=3)
         l1 = time_cuda(case["lfn"], reps=20) if case["lfn"] else None
@@ -805,15 +939,21 @@ def times_phase(chk, fe, variables, imgs):
         l2 = time_cuda(case["lfn"], reps=20) if case["lfn"] else None
         p2 = time_cuda(case["pfn"], reps=5, rounds=3)
         bound_ms, bound_by = case["bound"]
+        label = f"{case['kernel']} {case['shape']}"
         row = {"kernel": case["kernel"], "shape": case["shape"], "n": case["n"],
                "launches_per_call": case["per_call"],
-               "ms": device_ms(case["kfn"]), "plain_ms": device_ms(case["pfn"], reps=3),
-               "library_ms": device_ms(case["lfn"]) if case["lfn"] else None,
+               "ms": device_ms(case["kfn"], 20, label),
+               "plain_ms": device_ms(case["pfn"], 3, label + " plain"),
+               "library_ms": None if l1 is None else device_ms(
+                   case["lfn"], 20, label + " library"),
                "event_ms": statistics.median([k1, k2]),
                "event_plain_ms": statistics.median([p1, p2]),
                "event_library_ms": None if l1 is None else statistics.median([l1, l2]),
                "bound_ms": bound_ms, "bound_by": bound_by}
         row["share_of_bound"] = bound_ms / row["ms"]
+        if row["ms"] < bound_ms:
+            print(f"  ({label}: {row['ms']:.4f} ms is below its bound {bound_ms:.4f} ms, "
+                  "which counts every byte at the HBM rate)")
         rows.append(row)
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         print(f"  {row['kernel']:16s} {row['shape']:32s} {row['ms']:.4f}  {row['event_ms']:.4f}  "
@@ -839,7 +979,7 @@ def times_phase(chk, fe, variables, imgs):
               f"kernel {s['ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
               f"share {100 * s['bound_ms'] / s['ms']:.1f} %, plain {s['plain_ms']:.4f} ms, "
               f"library {lib}")
-    return infer_ms, per_frame_chunk, rows, sums
+    return rows, sums
 
 
 @phase("profile")
@@ -848,26 +988,15 @@ def profile_phase(fe, variables, imgs, out_dir):
     (torch.profiler), and the device-busy share of the call's wall time. The
     profiler's own host cost lengthens the wall time, so the share is a
     lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     result = {}
     calls = (("infer", lambda: fe.infer(variables, imgs[1], imgs[0])),
              ("infer_chunk", lambda: fe.infer_chunk(variables, imgs)))
     for name, fn in calls:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = sorted(
-            ((e.key, e.count, e.self_device_time_total / 1e3)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            key=lambda r: -r[2],
-        )
+        prof, events, wall_ms = counted_profile(fn, name, record_shapes=True)
+        rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3) for e in events),
+                      key=lambda r: -r[2])
         busy_ms = sum(r[2] for r in rows)
         launches = sum(r[1] for r in rows)
         # the fused normalisation: no prologue op on a [N,H,W,k²] tensor
@@ -913,17 +1042,17 @@ def gt_motion(scale):
     return T, np.linalg.inv(T).astype(np.float32)
 
 
-def synthesize(depth_ref, T_ref2cur):
+def synthesize(depth_ref, T_ref2cur, K=TRACK_K):
     """Exact rigid flow ref -> cur of a depth map, and the current view's
     depth scattered at the projected pixels (the port's geometry, on the
     CPU)."""
     from dfvo_torch.geometry.ops import backproject_depth, project_points
 
     h, w = depth_ref.shape
-    K_inv = np.linalg.inv(TRACK_K).astype(np.float32)
+    K_inv = np.linalg.inv(K).astype(np.float32)
     pts_ref = backproject_depth(torch.from_numpy(depth_ref)[None], torch.from_numpy(K_inv))
     pts_cur = torch.einsum("ij,nhwj->nhwi", torch.from_numpy(T_ref2cur), pts_ref)
-    pix = project_points(pts_cur, torch.from_numpy(TRACK_K))[0].numpy()
+    pix = project_points(pts_cur, torch.from_numpy(K))[0].numpy()
     flow = pix - np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
     z = pts_cur[0, ..., 2].numpy()
     px = np.floor(pix[..., 0]).astype(int)
@@ -934,7 +1063,7 @@ def synthesize(depth_ref, T_ref2cur):
     return flow.astype(np.float32), depth_cur
 
 
-def track_scenes(h=192, w=640):
+def track_scenes(h=192, w=640, K=TRACK_K):
     """The scenes of tests/test_pipeline.py (E success, planar -> PnP,
     constant motion) and the spike case of tests/test_tracking_options.py,
     on smooth oracle depth fields: name -> (inputs, T_cur2ref or None)."""
@@ -951,7 +1080,7 @@ def track_scenes(h=192, w=640):
                                           ("spike", 3, 1.5, 0.1)):
         d_ref = np.full((h, w), 15.0, np.float32) if seed is None else depth(seed)
         T_gt, T_r2c = gt_motion(scale)
-        flow, d_cur = synthesize(d_ref, T_r2c)
+        flow, d_cur = synthesize(d_ref, T_r2c, K)
         scenes[name] = ((flow, zeros, d_cur, d_ref, eye, prev_scale), T_gt)
     rng = np.random.RandomState(1)
     d_ref = depth(2)
@@ -962,15 +1091,15 @@ def track_scenes(h=192, w=640):
     return scenes
 
 
-def track_call(inputs, device, tcfg, key=None):
+def track_call(inputs, device, tcfg, key=None, K=TRACK_K):
     """A closure running tracking_step on ``inputs`` moved to ``device``."""
     from dfvo_torch.pipeline.tracking import tracking_step
     from dfvo_torch.utils import prng
 
     flow, fd, dc, dr, prev, ps = inputs
     args = [torch.from_numpy(a).to(device) for a in (flow, fd, dc, dr, prev)]
-    K = torch.from_numpy(TRACK_K).to(device)
-    K_inv = torch.from_numpy(np.linalg.inv(TRACK_K).astype(np.float32)).to(device)
+    K_inv = torch.from_numpy(np.linalg.inv(K).astype(np.float32)).to(device)
+    K = torch.from_numpy(K).to(device)
     key = prng.PRNGKey(0) if key is None else key
     return lambda: tracking_step(key, *args, K, K_inv, tcfg, prev_scale=ps)
 
@@ -1008,9 +1137,14 @@ def check_track_bounds(name, out, inputs, T_gt):
     return {"rot_err_deg": ang, "t_err": terr, "t_norm": tnorm}
 
 
-def compare_track(name, got, want):
+def compare_track(name, got, want, inliers_by_count=False):
     """The card's tracking_step against the CPU's, with the CPU parity
-    tests' tolerances (tests/test_torch_tracking.py)."""
+    tests' tolerances (tests/test_torch_tracking.py). With
+    ``inliers_by_count`` (a PnP frame with pnp_iterative_kp: its inliers
+    index rigid-flow keypoints chosen by a score that is rounding noise on
+    an exact scene, so the card and the CPU pick other pixels) the inlier
+    counts agree within 20 % (9.7 % apart on the planar scene at 370x1226,
+    measured first)."""
     if int(got["mode"]) != int(want["mode"]):
         fail(f"track {name}: card mode {int(got['mode'])} != CPU mode {int(want['mode'])}")
     if not np.array_equal(got["kp_ref"], want["kp_ref"]):
@@ -1021,8 +1155,14 @@ def compare_track(name, got, want):
     s, sq = float(got["scale"]), float(want["scale"])
     valid = want["kp_valid"]
     agree = float((got["inliers"] == want["inliers"])[valid].mean()) if valid.any() else 1.0
+    if inliers_by_count:
+        n, nq = int(got["inliers"].sum()), int(want["inliers"].sum())
+        agree = 1.0 - abs(n - nq) / max(nq, 1)
+        ok_inliers = agree >= 0.8
+    else:
+        ok_inliers = agree >= 0.995
     if not (ang < 0.01 and dt <= 1e-3 * np.linalg.norm(Q[:3, 3]) and abs(s - sq) <= 1e-3 * abs(sq)
-            and agree >= 0.995):
+            and ok_inliers):
         fail(f"track {name}: card vs CPU rotation {ang:.2e} deg, translation {dt:.2e}, "
              f"scale {s} vs {sq}, inliers agree {agree:.4f}")
     return {"rot_deg": ang, "t": dt, "scale_rel": abs(s - sq) / abs(sq), "inliers_agree": agree}
@@ -1149,20 +1289,29 @@ def count_syncs(fn):
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+def counted_profile(fn, label, **kw):
+    """``profiled(fn)`` whose number of device events the trace before it
+    agrees on: a trace whose count differs from the one before is recorded
+    in ``LOST_TRACES`` and the call traced again, four times at most."""
+    prof, events, wall_ms = profiled(fn, **kw)
+    n = sum(e.count for e in events)
+    for _ in range(4):
+        prof, events, wall_ms = profiled(fn, **kw)
+        n, last = sum(e.count for e in events), n
+        if n == last:
+            return prof, events, wall_ms
+        LOST_TRACES.append((label, 1, min(n, last), max(n, last)))
+        print(f"  ({label}: two traces of one call held {last} and {n} device events; "
+              "traced again)", flush=True)
+    fail(f"{label}: no two traces in a row held the same device events ({LOST_TRACES[-4:]})")
+
+
 def profile_call(fn, label, out_dir):
     """Kernels, device busy share and top device ops of one call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    _, events, wall_ms = counted_profile(fn, label)
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3) for e in events),
                   key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     kernels = sum(r[1] for r in rows)
@@ -1614,7 +1763,7 @@ def scan_phase(seed, out_dir):
     Kd = torch.from_numpy(K).to(dev)
     Kid = torch.from_numpy(np.linalg.inv(K).astype(np.float32)).to(dev)
     imgs = torch.from_numpy(frames).to(dev)
-    keys = torch.from_numpy(prng.chunk_keys(seed, range(1, chunk + 1)).astype(np.int64)).to(dev)
+    keys = torch.from_numpy(prng.step_keys(seed, range(1, chunk + 1)).astype(np.int64)).to(dev)
     oracle = {"depths": torch.from_numpy(depths[1:]).to(dev),
               "flow_fwd": torch.from_numpy(flows).to(dev),
               "flow_diff": torch.from_numpy(diffs).to(dev)}
@@ -1682,7 +1831,7 @@ def scan_phase(seed, out_dir):
         pz, md, _ = step32(v32, to(frames[1 : p + 1]),
                            (to(frames[0]), to(depths[0]), torch.eye(4, device=device),
                             np.float32(1.0)),
-                           to(prng.chunk_keys(seed, range(1, p + 1)).astype(np.int64)), to(K),
+                           to(prng.step_keys(seed, range(1, p + 1)).astype(np.int64)), to(K),
                            to(np.linalg.inv(K).astype(np.float32)),
                            oracle={"depths": to(depths[1 : p + 1]), "flow_fwd": to(flows[:p]),
                                    "flow_diff": to(diffs[:p])})
@@ -1839,13 +1988,16 @@ def ft_kernel_times(cases):
 
         with torch.no_grad():
             row = {"kernel": kernel, "shape": label, "per_update": calls,
-                   "fwd_ms": device_ms(lambda: kfn(*ins, *rest)),
-                   "plain_fwd_ms": device_ms(lambda: plain(*ins, *rest), reps=3),
-                   "library_fwd_ms": device_ms(lfwd) if lfwd else None,
-                   "library_bwd_ms": device_ms(lbwd) if lbwd else None,
+                   "fwd_ms": device_ms(lambda: kfn(*ins, *rest), label=f"{label} fwd"),
+                   "plain_fwd_ms": device_ms(lambda: plain(*ins, *rest), reps=3,
+                                             label=f"{label} plain fwd"),
+                   "library_fwd_ms": device_ms(lfwd, label=f"{label} library fwd")
+                   if lfwd else None,
+                   "library_bwd_ms": device_ms(lbwd, label=f"{label} library bwd")
+                   if lbwd else None,
                    "fwd_bound_ms": bfwd[0], "fwd_bound_by": bfwd[1],
                    "bwd_bound_ms": bbwd[0], "bwd_bound_by": bbwd[1]}
-        row["bwd_ms"] = device_ms(vjp, reps=3)
+        row["bwd_ms"] = device_ms(vjp, reps=3, label=f"{label} plain bwd")
         rows.append(row)
         lf = "none" if lfwd is None else f"{row['library_fwd_ms']:.4f}"
         lb = "none" if lbwd is None else f"{row['library_bwd_ms']:.4f}"
@@ -1895,6 +2047,7 @@ def ft_config(root, data, result, execution):
                            "gt_pose_dir": f"{data}/gt_poses", "result_dir": result}
     if execution == "scan":
         custom["tpu"] = {"execution": "scan"}
+    os.makedirs(root, exist_ok=True)
     path = os.path.join(root, f"custom_{execution}.yml")
     with open(path, "w") as f:
         yaml.safe_dump(custom, f)
@@ -1922,19 +2075,16 @@ class LossRecorder:
         self.cls.value_and_grad = self.orig
 
 
-def ft_cli_run(seed, execution, frames):
-    """The CLI with the finetuning YAML over ``frames`` frames of the run
-    phase's sequence, recorded: host reads, launches, Function backward
-    passes, losses, peak memory."""
+def cli_run(seed, root, execution, frames, custom):
+    """The CLI with the custom YAML ``custom`` over ``frames`` frames of a
+    sequence written under ``root``/data, recorded: host reads, launches,
+    Function backward passes, losses, peak memory."""
     from dfvo_torch.apis import run as cli
     from dfvo_torch.ops.correlation import CorrelationFunction
     from dfvo_torch.ops.headconv import HeadConvFunction
     from dfvo_torch.ops.regfilter import RegDistFilterFunction
 
-    root = os.path.join(ROOT, "build", "chip_smoke", "finetune", execution)
-    data, result = os.path.join(root, "data"), os.path.join(root, "result")
-    write_run_sequence(data, seed, frames)
-    custom = ft_config(root, data, result, execution)
+    write_run_sequence(os.path.join(root, "data"), seed, frames)
     functions = {"correlation": CorrelationFunction, "reg_dist_filter": RegDistFilterFunction,
                  "head_conv": HeadConvFunction}
     for fn in functions.values():
@@ -1952,13 +2102,21 @@ def ft_cli_run(seed, execution, frames):
     finally:
         rec.close()
         losses.close()
-    peak = torch.cuda.max_memory_allocated()
-    out = {"vo": vo, "wall": wall, "peak": peak, "rec": rec, "result": result,
-           "losses": torch.stack(losses.losses).cpu().numpy() if losses.losses else np.zeros(0),
-           "launches": {k: fn.launches for k, fn in counters.items()},
-           "variants": {k: dict(fn.variant_launches) for k, fn in counters.items()},
-           "backward_calls": {k: fn.backward_calls for k, fn in functions.items()}}
-    return out
+    return {"vo": vo, "wall": wall, "peak": torch.cuda.max_memory_allocated(), "rec": rec,
+            "losses": torch.stack(losses.losses).cpu().numpy() if losses.losses else np.zeros(0),
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "variants": {k: dict(fn.variant_launches) for k, fn in counters.items()},
+            "backward_calls": {k: fn.backward_calls for k, fn in functions.items()}}
+
+
+def ft_cli_run(seed, execution, frames):
+    """The CLI with the finetuning YAML over ``frames`` frames of the run
+    phase's sequence, recorded (``cli_run``)."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "finetune", execution)
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    r = cli_run(seed, root, execution, frames, ft_config(root, data, result, execution))
+    r["result"] = result
+    return r
 
 
 def ft_check_cli(r, execution, frames):
@@ -2242,6 +2400,398 @@ def finetune_phase(chk, seed, out_dir):
             "card_vs_cpu": parity, "update": times}
 
 
+def ext_config(root, data, result, execution, finetune=True, edit=None):
+    """A custom YAML: kitti_stereo_train_extend.yml's options (with or
+    without its online finetuning), the sequence and the directories, and
+    ``edit``'s changes."""
+    import yaml
+
+    with open(EXTEND_CFG) as f:
+        custom = yaml.safe_load(f)
+    custom["online_finetune"]["enable"] = finetune
+    custom["seq"] = RUN_SEQ
+    custom["directory"] = {"img_seq_dir": f"{data}/odom_data",
+                           "gt_pose_dir": f"{data}/gt_poses", "result_dir": result}
+    custom["tpu"] = {"execution": execution}
+    if edit:
+        edit(custom)
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, f"custom_{execution}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(custom, f)
+    return path
+
+
+def ext_check_cli(r, execution, frames, result):
+    """The extend CLI run's checks (the configuration, the trajectory, one
+    update per tracked frame, launches, host reads); returns its summary."""
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    vo = r["vo"]
+    cfg, ft, tcfg = vo.cfg, vo.finetuner, vo.tcfg
+    tracked = frames - 1
+    if (cfg.image.height, cfg.image.width) != EXT_SIZE or tcfg.scale_method != "iterative" \
+            or tcfg.kp_method != "local_bestN" or str(vo.frontend.dtype) != "torch.bfloat16" \
+            or ft is None or not ft.train_flow or ft.train_depth \
+            or list(cfg.online_finetune.flow.scales) != [1, 2, 3, 4, 5]:
+        fail(f"extend {execution}: the configuration did not take")
+    if vo.finetune_cnt != tracked:
+        fail(f"extend {execution}: {vo.finetune_cnt} updates, expected {tracked}")
+    traj = load_poses_from_txt(os.path.join(result, f"{RUN_SEQ}.txt"))
+    if sorted(traj) != list(range(frames)) or not all(np.isfinite(p).all()
+                                                    for p in traj.values()):
+        fail(f"extend {execution}: {sorted(traj)} poses, expected {frames} finite")
+    losses = r["losses"]
+    if len(losses) != tracked or not np.isfinite(losses).all():
+        fail(f"extend {execution}: {len(losses)} losses, expected {tracked} finite")
+    if execution == "frame":
+        n_calls = tracked
+    else:
+        n_calls = math.ceil(tracked / int(cfg.tpu.scan_chunk))
+    infer = {k: n_calls * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    want_ft = {k: tracked * EXT_FT_PER_UPDATE[k] for k in PER_CALL}
+    launches_ft = {k: r["launches"][k] - infer[k] for k in PER_CALL}
+    print(f"  launches {r['launches']} = inference {infer} + updates {launches_ft} "
+          f"(expected {want_ft}); by variant {r['variants']}")
+    if launches_ft != want_ft:
+        fail(f"extend {execution}: update launches {launches_ft}, expected {want_ft}")
+    for k in ("correlation", "head_conv"):
+        by = r["variants"][k]
+        if by["tensor_core"] != infer[k] or by["cuda_core"] != want_ft[k]:
+            fail(f"extend {execution}: {k} by variant {by}, expected {infer[k]} "
+                 f"tensor_core and {want_ft[k]} cuda_core")
+    if execution == "frame":
+        reads = RUN_HOST_READS[vo.drawer is not None]
+        syncs, where = r["rec"].syncs, r["rec"].where
+        modes = r["rec"].modes
+        if syncs != [0] + [reads] * tracked:
+            fail(f"extend frame: host reads per frame {syncs}, expected 0 then {reads}; "
+                 f"by source line {where}")
+    else:
+        windows = r["rec"].windows()
+        syncs = [len(x) for x in windows]
+        where = {}
+        for loc in (loc for x in windows for loc in x):
+            where[loc] = where.get(loc, 0) + 1
+        modes = None
+        if syncs != [0] + [SCAN_HOST_READS] * n_calls + [0]:
+            fail(f"extend scan: host reads {syncs}, expected 0, {SCAN_HOST_READS} per chunk, 0; "
+                 f"by source line {where}")
+    times = vo.timers.timers
+    per_frame = {k: 1e3 * sum(times[k]["times"]) / tracked
+                 for k in ("data_loading", "vo_step", "finetune", "visualization", "DF-VO")
+                 if k in times}
+    # DF-VO ms of each tracked frame (frame execution) or chunk (scan)
+    df_vo = [1e3 * t for t in times["DF-VO"]["times"]]
+    print(f"  {execution}: {frames} frames at {EXT_SIZE[1]}x{EXT_SIZE[0]}, {tracked} updates, "
+          f"main() in {r['wall']:.2f} s; per tracked frame (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_frame.items())
+          + f"; DF-VO per {'frame' if execution == 'frame' else 'chunk'} (ms) "
+          + str([round(t, 2) for t in df_vo])
+          + f"; modes {modes}; losses {losses[0]:.4f} .. {losses[-1]:.4f}; host reads {syncs} "
+          f"by source line {where}; peak memory {r['peak'] / 2**30:.2f} GiB", flush=True)
+    return {"frames": frames, "updates": tracked, "ms_per_tracked_frame": per_frame,
+            "df_vo_ms": df_vo,
+            "modes": modes, "host_reads": syncs, "host_reads_by_line": where,
+            "launches": r["launches"], "launches_finetune": launches_ft,
+            "loss_first_last": [float(losses[0]), float(losses[-1])],
+            "peak_mem_gib": r["peak"] / 2**30}
+
+
+def ext_iterative_scenes():
+    """The iterative step (iterative scale, the E and PnP trackers'
+    iterative keypoints) on the track scenes at 370x1226 on the card,
+    held to the JAX tests' bounds and to the CPU; its host syncs (one, the
+    PnP decision), time and kernels on the E scene."""
+    import dataclasses
+
+    from dfvo_torch.pipeline.tracking import TrackingConfig
+
+    h, w = EXT_SIZE
+    # KITTI odometry's left camera (RUN_CALIB) at 1226x370
+    K = np.array([[718.856 * w / RUN_SIZE[1], 0, 607.1928 * w / RUN_SIZE[1]],
+                  [0, 718.856 * h / RUN_SIZE[0], 185.2157 * h / RUN_SIZE[0]], [0, 0, 1]],
+                 np.float32)
+    tcfg = dataclasses.replace(
+        TrackingConfig(height=h, width=w, depth_crop=((0.0, 1.0), (0.0, 1.0)), max_depth=50.0,
+                       scale_max_trials=1024), **EXT_ITERATIVE)
+    scenes = track_scenes(h, w, K)
+    out = {}
+    for name in ("essential", "planar", "spike"):
+        inputs, T_gt = scenes[name]
+        got = to_numpy(track_call(inputs, "cuda", tcfg, K=K)())
+        want = to_numpy(track_call(inputs, "cpu", tcfg, K=K)())
+        res = check_track_bounds(name, got, inputs, T_gt)
+        res.update(mode=int(got["mode"]), scale=float(got["scale"]),
+                   card_vs_cpu=compare_track(name, got, want,
+                                             inliers_by_count=name != "essential"))
+        out[name] = res
+        print(f"  iterative step, {name} scene at {w}x{h}: mode {res['mode']} scale "
+              f"{res['scale']:.4f}; card vs CPU "
+              f"{({k: f'{v:.2e}' for k, v in res['card_vs_cpu'].items()})}", flush=True)
+    fn = track_call(scenes["essential"][0], "cuda", tcfg, K=K)
+    syncs = count_syncs(fn)
+    if syncs != 1:
+        fail(f"extend: the iterative tracking_step made {syncs} host syncs, expected 1")
+    return out, fn, syncs
+
+
+@phase("extend")
+def extend_phase(chk, seed, out_dir):
+    """The extended paper's configuration at 370x1226: each kernel against
+    its plain version at its shapes there and their times; the CLI with
+    finetuning in frame and scan execution; the iterative step on the card
+    against the CPU (track scenes; bench.py's oracle drive through one
+    chunk); the pose CNN (deep_pose tracking, depth consistency); the
+    bestN and sampled selectors through one chunk; and the timings,
+    kernels and busy share of the frame step, the chunk step and one
+    update."""
+    import dataclasses
+
+    from dfvo_torch.pipeline import tracking as tracking_mod
+    from dfvo_torch.pipeline.dfvo import frame_step
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+    from dfvo_torch.pipeline.scan_runner import make_chunk_step
+    from dfvo_torch.pipeline.tracking import TRACK_MODE_ESSENTIAL
+    from dfvo_torch.utils import ConfigLoader, prng
+
+    cfg = ConfigLoader().merge_cfg([CFG, EXTEND_CFG])
+    fe = DeepFrontend(cfg, "cuda")
+    shapes = main_path_shapes(fe.flow_feed, fe.depth_feed)
+    print(f"  {cfg.image.width}x{cfg.image.height}: LiteFlowNet feed {fe.flow_feed}, depth "
+          f"feed {fe.depth_feed} (multiples of 32; the disparity is resized to the image)")
+    check_main_path_shapes(chk, shapes, suffix=f" @{EXT_SIZE[1]}x{EXT_SIZE[0]}")
+    rows, sums = kernel_times(timing_cases(chk, shapes))
+
+    result = {"size": list(EXT_SIZE), "flow_feed": list(fe.flow_feed),
+              "depth_feed": list(fe.depth_feed), "kernel_rows": rows, "kernel_sums": sums}
+    base = os.path.join(ROOT, "build", "chip_smoke", "extend")
+    cli = {}
+    for execution, frames in (("frame", EXT_FRAMES), ("scan", EXT_SCAN_FRAMES)):
+        root = os.path.join(base, execution)
+        data, res_dir = os.path.join(root, "data"), os.path.join(root, "result")
+        custom = ext_config(root, data, res_dir, execution)
+        r = cli_run(seed, root, execution, frames, custom)
+        cli[execution] = ext_check_cli(r, execution, frames, res_dir)
+        if execution == "frame":
+            vo_frame = r["vo"]
+    result["cli"] = cli
+
+    # the iterative step on the card against the CPU
+    result["iterative_scenes"], track_fn, track_syncs = ext_iterative_scenes()
+
+    # the frame step, one update and the chunk step at 370x1226: time,
+    # kernels, busy share, host syncs
+    vo = vo_frame
+    variables, tcfg = vo.infer_variables, vo.tcfg
+    img_ref, depth_ref = vo.ref_data["img_dev"], vo.ref_data["raw_depth_dev"]
+    key = prng.fold_in(prng.PRNGKey(vo.cfg.seed), EXT_FRAMES)
+    eye = torch.eye(4, device="cuda")
+
+    def one_frame():
+        return frame_step(vo.frontend, tcfg, variables, img_ref, img_ref, depth_ref, eye, key,
+                          vo.K, vo.K_inv, 1.0)
+
+    unit = img_ref.float() / 255.0
+    pose = torch.eye(4, device="cuda")
+    pose[2, 3] = 0.5
+
+    def one_update():
+        return vo.finetuner.update(vo.variables, vo.opt_state, unit, unit, pose)
+
+    steps = {}
+    for name, fn, want_syncs in (("tracking_step_iterative", track_fn, 1),
+                                 ("frame_step", one_frame, 1), ("update", one_update, 0)):
+        syncs = count_syncs(fn)
+        if syncs != want_syncs:
+            fail(f"extend {name}: {syncs} host syncs, expected {want_syncs}")
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        ms = time_cuda(fn, reps=1, rounds=5)
+        prof = profile_call(fn, f"extend_{name}", out_dir)
+        steps[name] = {"ms": ms, "host_syncs": syncs, "peak_mem_gib": peak, **prof}
+        print(f"  {name} at {EXT_SIZE[1]}x{EXT_SIZE[0]}: {ms:.2f} ms (CUDA events, median), "
+              f"{syncs} host syncs, {prof['kernels']} kernels, busy "
+              f"{100 * prof['busy_share']:.1f} %, peak {peak:.2f} GiB above the resident",
+              flush=True)
+
+    # bench.py's oracle drive through one chunk: the iterative chunk step
+    # with the networks in full, held to the GT; then the bestN and sampled
+    # selectors through the same chunk
+    h, w = EXT_SIZE
+    chunk = int(cfg.tpu.scan_chunk)
+    K, frames, depths, flows, diffs, motions = oracle_chunk(h, w, chunk, seed)
+    dev = torch.device("cuda")
+    to = (lambda a, d=dev: torch.from_numpy(np.ascontiguousarray(a)).to(d))
+    Kd, Kid = to(K), to(np.linalg.inv(K).astype(np.float32))
+    imgs = to(frames)
+    keys = to(prng.step_keys(seed, range(1, chunk + 1)).astype(np.int64))
+    oracle = {"depths": to(depths[1:]), "flow_fwd": to(flows), "flow_diff": to(diffs)}
+    carry = (imgs[0], to(depths[0]), eye, np.float32(1.0))
+    chunks = {}
+    for kp_method in ("local_bestN", "bestN", "sampled"):
+        tc = dataclasses.replace(tcfg, kp_method=kp_method)
+        step, _ = make_chunk_step(vo.frontend, tc)
+        info = {}
+
+        def run_chunk(step=step, info=info):
+            return step(variables, imgs[1:], carry, keys, Kd, Kid, oracle=oracle, info=info)
+
+        counters = reset_launch_counts()
+        poses, modes, new_carry = run_chunk()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if launches != PER_CALL:
+            fail(f"extend chunk ({kp_method}): launches {launches} != {PER_CALL}")
+        poses = poses.cpu().numpy().astype(np.float64)
+        if not np.isfinite(poses).all():
+            fail(f"extend chunk ({kp_method}): non-finite poses")
+        errs = [(rot_deg(poses[i][:3, :3], T[:3, :3]),
+                 float(np.linalg.norm(poses[i][:3, 3] - T[:3, 3]) / np.linalg.norm(T[:3, 3])))
+                for i, T in enumerate(motions)]
+        worst_rot, worst_t = max(e[0] for e in errs), max(e[1] for e in errs)
+        entry = {"modes": modes.tolist(), "worst_rot_deg": worst_rot, "worst_t_of_t": worst_t,
+                 "scale_carry": float(new_carry[3])}
+        print(f"  oracle chunk of {chunk} at {w}x{h}, {kp_method}: modes {modes.tolist()}; "
+              f"worst rotation {worst_rot:.3e} deg, translation {worst_t:.3e} of |t_gt|",
+              flush=True)
+        if kp_method == "local_bestN":
+            if not (modes == TRACK_MODE_ESSENTIAL).all() or worst_rot >= 0.1 or worst_t >= 0.05:
+                fail(f"extend oracle chunk: modes {modes.tolist()}, rotation {worst_rot:.3e} "
+                     f"deg, translation {worst_t:.3e} of |t| (bounds 0.1 deg, 0.05 |t|)")
+            syncs = count_syncs(run_chunk)
+            if syncs != 1:
+                fail(f"extend chunk_step: {syncs} host syncs, expected 1 (the decision)")
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run_chunk()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+            ms = time_cuda(run_chunk, reps=1, rounds=3)
+            prof = profile_call(run_chunk, "extend_chunk_step", out_dir)
+            entry.update(ms_per_chunk=ms, ms_per_frame=ms / chunk, host_syncs=syncs,
+                         peak_mem_gib=peak, **prof)
+            print(f"  chunk_step (iterative, oracle) at {w}x{h}: {ms:.2f} ms per chunk of "
+                  f"{chunk}, {ms / chunk:.3f} ms/frame; {syncs} host sync, {prof['kernels']} "
+                  f"kernels, busy {100 * prof['busy_share']:.1f} %, peak {peak:.2f} GiB",
+                  flush=True)
+        chunks[kp_method] = entry
+    result["oracle_chunk"] = chunks
+
+    # the iterative chunk's tracking (iterative scale and keypoints) on the
+    # card against the CPU (float32, a network stub of zeros: with the
+    # oracle the networks add nothing)
+    class Zeros:
+        def __init__(self, device):
+            self.device = device
+
+        def infer_chunk(self, variables, all_imgs):
+            m = all_imgs.shape[0] - 1
+            z = torch.zeros((m, h, w), device=self.device)
+            return {"depths": z, "flow_fwd": torch.zeros((m, h, w, 2), device=self.device),
+                    "flow_diff": z}
+
+    p = SCAN_PARITY_PAIRS
+    outs = {}
+    tc_iter = dataclasses.replace(tcfg, **EXT_ITERATIVE)
+    for device in ("cuda", "cpu"):
+        step, _ = make_chunk_step(Zeros(device), tc_iter)
+        t0 = time.perf_counter()
+        pz, md, _ = step(None, to(frames[1 : p + 1], device),
+                         (to(frames[0], device), to(depths[0], device),
+                          torch.eye(4, device=device), np.float32(1.0)),
+                         to(prng.step_keys(seed, range(1, p + 1)).astype(np.int64), device),
+                         to(K, device), to(np.linalg.inv(K).astype(np.float32), device),
+                         oracle={"depths": to(depths[1 : p + 1], device),
+                                 "flow_fwd": to(flows[:p], device),
+                                 "flow_diff": to(diffs[:p], device)})
+        outs[device] = (pz.cpu().numpy().astype(np.float64), md, time.perf_counter() - t0)
+    (pc, mc, tc_), (ph, mh, th) = outs["cuda"], outs["cpu"]
+    par_rot = max(rot_deg(pc[i][:3, :3], ph[i][:3, :3]) for i in range(p))
+    par_t = max(float(np.linalg.norm(pc[i][:3, 3] - ph[i][:3, 3]) / np.linalg.norm(ph[i][:3, 3]))
+                for i in range(p))
+    print(f"  iterative chunk of {p} (float32 tracking, oracle, iterative keypoints too): "
+          f"card {tc_:.2f} s, CPU "
+          f"{th:.2f} s; modes {mc.tolist()}; worst rotation {par_rot:.2e} deg, translation "
+          f"{par_t:.2e} of |t| (limits 0.01 deg, {SCAN_T_REL:g} |t|)", flush=True)
+    if mc.tolist() != mh.tolist() or not (mc == TRACK_MODE_ESSENTIAL).all() \
+            or par_rot >= 0.01 or par_t > SCAN_T_REL:
+        fail(f"extend iterative chunk card vs CPU: modes {mc.tolist()} / {mh.tolist()}, "
+             f"rotation {par_rot:.2e} deg, translation {par_t:.2e} of |t|")
+    result["iterative_chunk_card_vs_cpu"] = {"pairs": p, "modes": mc.tolist(),
+                                             "worst_rot_deg": par_rot, "worst_t_of_t": par_t}
+
+    # the pose CNN through a few frames of frame execution (drawer off)
+    calls = []
+    real_dc = tracking_mod.compute_depth_consistency
+
+    def spy(*args):
+        calls.append(1)
+        return real_dc(*args)
+
+    pose_runs = {}
+    for method in ("deep_pose", "hybrid"):
+        def edit(custom, method=method):
+            custom["deep_pose"] = {"enable": True}
+            custom["tracking_method"] = method
+            custom["visualization"] = {"enable": False}
+            if method == "hybrid":
+                custom["kp_selection"]["depth_consistency"] = {"enable": True}
+
+        root = os.path.join(base, f"pose_{method}")
+        data, res_dir = os.path.join(root, "data"), os.path.join(root, "result")
+        custom = ext_config(root, data, res_dir, "frame", finetune=False, edit=edit)
+        tracking_mod.compute_depth_consistency = spy
+        try:
+            r = cli_run(seed, root, "frame", EXT_POSE_FRAMES, custom)
+        finally:
+            tracking_mod.compute_depth_consistency = real_dc
+        from dfvo_torch.utils.io import load_poses_from_txt
+
+        traj = load_poses_from_txt(os.path.join(res_dir, f"{RUN_SEQ}.txt"))
+        tracked = EXT_POSE_FRAMES - 1
+        modes, syncs = r["rec"].modes, r["rec"].syncs
+        want_calls = tracked if method == "hybrid" else 0
+        expected = {k: tracked * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+        print(f"  pose CNN, tracking_method {method}"
+              f"{' + depth consistency' if method == 'hybrid' else ''}: modes {modes}, host "
+              f"reads {syncs}, depth-consistency maps {len(calls)}, launches {r['launches']}, "
+              f"{1e3 * r['wall'] / EXT_POSE_FRAMES:.1f} ms/frame with setup", flush=True)
+        if sorted(traj) != list(range(EXT_POSE_FRAMES)) \
+                or not all(np.isfinite(q).all() for q in traj.values()) \
+                or (method == "deep_pose" and modes != [3] * tracked) \
+                or syncs != [0] + [EXT_POSE_READS[method]] * tracked \
+                or len(calls) != want_calls or r["launches"] != expected:
+            fail(f"extend pose CNN ({method}): poses {sorted(traj)}, modes {modes}, reads "
+                 f"{syncs}, depth-consistency maps {len(calls)}, launches {r['launches']}")
+        calls.clear()
+        pose_runs[method] = {"modes": modes, "host_reads": syncs,
+                             "launches": r["launches"]}
+    result["pose_cnn"] = pose_runs
+    result["steps"] = steps
+    result["launches"] = {k: cli["frame"]["launches"][k] + cli["scan"]["launches"][k]
+                          for k in PER_CALL}
+    return result
+
+
+def ext_summary(extend, smi):
+    """The extend phase's numbers for its JSON line."""
+    return {
+        "size": extend["size"], "cli": extend["cli"],
+        "steps": {k: {kk: vv for kk, vv in v.items() if kk != "top"}
+                  for k, v in extend["steps"].items()},
+        "oracle_chunk": {k: {kk: vv for kk, vv in v.items() if kk != "top"}
+                         for k, v in extend["oracle_chunk"].items()},
+        "iterative_scenes": extend["iterative_scenes"],
+        "iterative_chunk_card_vs_cpu": extend["iterative_chunk_card_vs_cpu"],
+        "pose_cnn": extend["pose_cnn"], "kernel_sums": extend["kernel_sums"],
+        "nvidia_smi": smi}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke", "chip_smoke.json"))
@@ -2258,18 +2808,19 @@ def main():
     ptxas = build_phase()
     chk = Checker(SEED)
     kernels_phase(chk)
+    out_dir = os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(out_dir, exist_ok=True)
     fe, variables, imgs, launches = slice_phase(SEED)
     parity = parity_phase(SEED, imgs)
     scenes, track = track_phase()
     frame = frame_phase(fe, variables, SEED)
     infer_ms, chunk_ms, rows, sums = times_phase(chk, fe, variables, imgs)
-    out_dir = os.path.dirname(os.path.abspath(args.out))
-    os.makedirs(out_dir, exist_ok=True)
     profile = profile_phase(fe, variables, imgs, out_dir)
     tracking = tracking_phase(fe, variables, scenes, frame, out_dir)
     run = run_phase(SEED, smi)
     scan = scan_phase(SEED, out_dir)
     finetune = finetune_phase(chk, SEED, out_dir)
+    extend = extend_phase(chk, SEED, out_dir)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -2290,7 +2841,10 @@ def main():
          "max_abs_err": chk.max_abs_err[name],
          "ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],
          "bound_ms": sums[name]["bound_ms"], "bound_by": sums[name]["bound_by"],
-         "library_ms": sums[name]["library_ms"]}
+         "library_ms": sums[name]["library_ms"],
+         "launches_extend": extend["launches"][name],
+         "at_370x1226": {k: extend["kernel_sums"][name][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")}}
         for name, (src, rep) in sources.items()
     ]
     report = {
@@ -2301,6 +2855,7 @@ def main():
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
         "tracking": tracking, "run": run, "scan": scan, "finetune": finetune,
+        "extend": extend, "lost_traces": LOST_TRACES,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
@@ -2338,6 +2893,7 @@ def main():
             "frame": run["timer_mean_ms"]["DF-VO"],
             "scan": scan["ms_per_tracked_frame"]["DF-VO"]},
         "nvidia_smi": smi}}))
+    print(json.dumps({"extend": ext_summary(extend, smi)}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -73,3 +73,14 @@ def se3_inverse(T):
     Rt = T[..., :3, :3].transpose(-1, -2)
     t = T[..., :3, 3]
     return make_se3(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def transformation_from_parameters(axisangle, translation, invert=False):
+    """(axis-angle [...x3], translation [...x3]) -> [...x4x4] transform:
+    the pose CNN's convention, T = trans(t) @ rot(aa), or with ``invert``
+    its inverse composition [R^T, R^T (-t)]."""
+    R = so3_exp(axisangle)
+    if invert:
+        R = R.transpose(-1, -2)
+        return make_se3(R, (R @ -translation[..., None])[..., 0])
+    return make_se3(R, translation)

@@ -1,10 +1,17 @@
 """Correspondence (keypoint) selection as fixed-shape tensor code.
 
-Counterpart of the ``local_bestN`` path of
-``dfvo_tpu/matching/kp_selection.py``: the image is cut into a grid of
-cells, and each cell contributes its best-n pixels by forward-backward flow
-consistency. Outputs are fixed-size [N x 2] keypoint arrays plus validity
-masks (padding slots carry ``valid=False``).
+Counterpart of ``dfvo_tpu/matching/kp_selection.py``:
+
+* ``local_bestN``: the image is cut into a grid of cells, and each cell
+  contributes its best-n pixels by forward-backward flow consistency;
+* ``bestN_flow_kp``: the N most consistent pixels of the whole image;
+* ``sampled_kp``: a fixed uniform list of pixels (``sampled_kp_indices``);
+* ``opt_rigid_flow_kp``: per cell, pixels consistent with both the optical
+  flow and the pose-induced rigid flow (the iterative stages' keypoints).
+
+Outputs are fixed-size [... x N x 2] keypoint arrays plus validity masks
+(padding slots carry ``valid=False``); every function takes optional
+leading frame axes.
 
 Cell geometry matches the reference DF-VO exactly, including its
 off-by-one: the slice ``[int(h/R*r) : int(h/R*(r+1)) - 1]`` excludes the last
@@ -190,3 +197,128 @@ def local_bestN(spec, flow, flow_diff, thre=0.1, score_method="flow",
         "good_kp_found": enough_pixels & diverse,
         "fb_flow_mask": fb_mask,
     }
+
+
+def bestN_flow_kp(flow, flow_diff, num_bestN=2000):
+    """Global best-N by flow inconsistency. Equal inconsistencies go to
+    the lower pixel index, as ``jax.lax.top_k(-flow_diff, N)`` orders
+    them: a stable ascending sort (``torch.topk`` promises no order among
+    ties).
+
+    Args:
+        flow: [... x H x W x 2] forward flow.
+        flow_diff: [... x H x W] forward-backward flow inconsistency.
+        num_bestN: N.
+
+    Returns:
+        dict with ``kp1``, ``kp2`` [... x N x 2], ``valid`` [... x N] (all
+        true), ``good_kp_found`` [...] (true) and ``fb_flow_mask``.
+    """
+    w = flow.shape[-2]
+    lead = flow.shape[:-3]
+    fd_flat = flow_diff.reshape(lead + (-1,))
+    idx = torch.sort(fd_flat, dim=-1, stable=True).indices[..., :num_bestN]
+    kp1 = torch.stack([(idx % w).to(flow.dtype), (idx // w).to(flow.dtype)], dim=-1)
+    kp2 = kp1 + pick(flow.reshape(lead + (-1, 2)), idx, len(lead))
+    return {
+        "kp1": kp1,
+        "kp2": kp2,
+        "valid": torch.ones(idx.shape, dtype=torch.bool, device=flow.device),
+        "good_kp_found": torch.ones(lead, dtype=torch.bool, device=flow.device),
+        "fb_flow_mask": flow_diff,
+    }
+
+
+def sampled_kp_indices(h, w, crop, num_kp):
+    """The uniform keypoint list (host numpy [num_kp x 2] float32 (x, y)):
+    ``num_kp`` evenly spaced flat indices of the cropped grid, offset by the
+    crop."""
+    y0, y1 = int(crop[0][0] * h), int(crop[0][1] * h)
+    x0, x1 = int(crop[1][0] * w), int(crop[1][1] * w)
+    total = (y1 - y0) * (x1 - x0) - 1
+    kp_list = np.linspace(0, total, num_kp).astype(np.int64)
+    cw = x1 - x0
+    xs = (kp_list % cw + x0).astype(np.float32)
+    ys = (kp_list // cw + y0).astype(np.float32)
+    return np.stack([xs, ys], axis=-1)
+
+
+def sampled_kp(kp1_fixed, flow):
+    """kp2 = kp1 + flow at the fixed uniform positions ``kp1_fixed``
+    [N x 2] (a tensor on the flow's device), for [... x H x W x 2] flows.
+
+    Returns:
+        dict with ``kp1``, ``kp2`` [... x N x 2], ``valid`` [... x N] and
+        ``good_kp_found`` [...], all true.
+    """
+    w = flow.shape[-2]
+    lead = flow.shape[:-3]
+    n = kp1_fixed.shape[0]
+    idx = kp1_fixed[:, 1].long() * w + kp1_fixed[:, 0].long()
+    kp1 = kp1_fixed.expand(lead + (n, 2))
+    kp2 = kp1 + pick(flow.reshape(lead + (-1, 2)), idx.expand(lead + (n,)), len(lead))
+    return {
+        "kp1": kp1,
+        "kp2": kp2,
+        "valid": torch.ones(lead + (n,), dtype=torch.bool, device=flow.device),
+        "good_kp_found": torch.ones(lead, dtype=torch.bool, device=flow.device),
+    }
+
+
+def opt_rigid_flow_kp(spec, flow, flow_diff, rigid_flow_diff, rigid_thre=5.0, opt_thre=0.1,
+                      score_method="opt_flow", variants=("best", "uniform")):
+    """Keypoints consistent with both the forward-backward optical flow and
+    the pose-induced rigid flow, per cell: the best-scoring variant and the
+    uniformly strided one (every (count // n)-th valid pixel in raster
+    order).
+
+    Args:
+        spec: KPSelectionSpec of the rigid-flow grid.
+        flow: [... x H x W x 2] forward flow.
+        flow_diff: [... x H x W] forward-backward inconsistency.
+        rigid_flow_diff: [... x H x W] |rigid flow - optical flow|.
+        rigid_thre, opt_thre: the two consistency thresholds.
+        score_method: 'rigid_flow' | 'opt_flow' (the best variant's score).
+        variants: which of 'best' and 'uniform' to compute (the JAX
+            function returns both; each caller reads one).
+
+    Returns:
+        dict with ``kp1_best``, ``kp2_best``, ``valid_best`` and/or
+        ``kp1_uniform``, ``kp2_uniform``, ``valid_uniform``, and
+        ``rigid_flow_mask``.
+    """
+    table = spec.table_on(flow.device)
+    cells = functools.partial(
+        gather_cells_view, h=spec.h, w=spec.w, num_row=spec.num_row,
+        num_col=spec.num_col,
+    )
+    fd_cells = cells(flow_diff)
+    rd_cells = cells(rigid_flow_diff)
+    valid_cells = (rd_cells < rigid_thre) & (fd_cells < opt_thre) & (table >= 0)
+    if score_method == "rigid_flow":
+        score_cells = rd_cells
+    elif score_method == "opt_flow":
+        score_cells = fd_cells
+    else:
+        raise ValueError(f"unknown score_method: {score_method}")
+
+    k = spec.n_per_cell
+    out = {"rigid_flow_mask": rigid_flow_diff}
+    if "best" in variants:
+        local_idx, sel_valid = _select_best_per_cell(score_cells, valid_cells, k)
+        out["kp1_best"], out["kp2_best"], out["valid_best"] = _kp_outputs(
+            spec, flow, table, local_idx, sel_valid)
+    if "uniform" in variants:
+        # valid first, raster order: a stable sort of an integer key
+        order = torch.argsort((~valid_cells).to(torch.uint8), dim=-1, stable=True)
+        count = torch.sum(valid_cells, dim=-1)
+        num_to_pick = torch.clamp(count, max=k)
+        step = torch.where(num_to_pick > 0, count // torch.clamp(num_to_pick, min=1),
+                           torch.ones_like(count))
+        iota = torch.arange(k, device=flow.device)
+        pos = torch.minimum(iota * step[..., None], torch.clamp(count - 1, min=0)[..., None])
+        uniform_idx = torch.gather(order, -1, pos)
+        uniform_valid = iota < num_to_pick[..., None]
+        out["kp1_uniform"], out["kp2_uniform"], out["valid_uniform"] = _kp_outputs(
+            spec, flow, table, uniform_idx, uniform_valid)
+    return out

@@ -106,6 +106,16 @@ def monodepth2_depth_from_flax(variables):
     return sd
 
 
+def monodepth2_pose_from_flax(variables):
+    """Flax ``Monodepth2Pose`` variables -> ``models.Monodepth2Pose`` state
+    dict (the decoder's squeeze, pose_0, pose_1, pose_2 as ``net.0..3``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = resnet_encoder_from_flax(params["encoder"], stats["encoder"])
+    for i, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
+        _conv(sd, f"decoder.net.{i}", params["decoder"][name])
+    return sd
+
+
 def liteflownet_from_flax(variables):
     """Flax ``LiteFlowNet`` variables -> ``models.LiteFlowNet`` state dict."""
     params = variables["params"]

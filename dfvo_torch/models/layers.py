@@ -27,18 +27,27 @@ def to_nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def nhwc_out(y):
+    """An NCHW-shaped convolution output as an NHWC tensor in NHWC memory.
+    A convolution of a channels-last input may still return NCHW memory
+    (cuDNN on the card did at LiteFlowNet's level 6 of a 384x1248 feed);
+    the kernels downstream read channels-contiguous memory, so such an
+    output is copied, and any other is passed through."""
+    return to_nhwc(y.contiguous(memory_format=torch.channels_last))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` applied to an NHWC tensor."""
 
     def forward(self, x):
-        return to_nhwc(super().forward(to_nchw(x)))
+        return nhwc_out(super().forward(to_nchw(x)))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` applied to an NHWC tensor."""
 
     def forward(self, x):
-        return to_nhwc(super().forward(to_nchw(x)))
+        return nhwc_out(super().forward(to_nchw(x)))
 
 
 class FrozenBatchNorm(nn.Module):

@@ -1,14 +1,17 @@
-"""Monodepth2 depth network (encoder + decoder wrapper).
+"""Monodepth2 depth and pose networks (encoder + decoder wrappers).
 
-Counterpart of the depth half of ``dfvo_tpu/models/monodepth2.py``,
-including disparity-to-depth conversion and the x5.4 KITTI
-stereo-baseline multiplier.
+Counterpart of ``dfvo_tpu/models/monodepth2.py``, including
+disparity-to-depth conversion and the x5.4 KITTI stereo-baseline
+multiplier.
 """
 
+import torch
 import torch.nn as nn
 
+from ..geometry.lie import transformation_from_parameters
 from .depth_decoder import DepthDecoder
 from .layers import resize_bilinear
+from .pose_decoder import PoseDecoder
 from .resnet_encoder import ResnetEncoder
 
 
@@ -37,16 +40,18 @@ class Monodepth2Depth(nn.Module):
         self.encoder = ResnetEncoder(device=device)
         self.decoder = DepthDecoder(device=device)
 
-    def forward(self, img):
-        """img: [N x H x W x 3] in [0, 1].
+    def forward(self, img, out_hw=None):
+        """img: [N x H x W x 3] in [0, 1]; H and W multiples of 32 (the
+        decoder's skip connections).
 
-        Returns a dict with ``depth`` [N x H x W] (scale 0 at input size, x
-        baseline multiplier), ``disp`` [N x H x W] scaled disparity and
-        ``disps`` {scale: raw sigmoid disparity}.
+        Returns a dict with ``depth`` [N x h x W] (scale 0 resized to
+        ``out_hw``, by default the input size, x baseline multiplier),
+        ``disp`` scaled disparity of the same size and ``disps`` {scale: raw
+        sigmoid disparity}.
         """
         feats = self.encoder(img)
         disps = self.decoder(feats)
-        _, h, w, _ = img.shape
+        h, w = out_hw or img.shape[1:3]
         disp0 = resize_bilinear(disps[0], h, w, align_corners=False)
         scaled_disp, depth = disp_to_depth(disp0, self.min_depth, self.max_depth)
         return {
@@ -54,3 +59,28 @@ class Monodepth2Depth(nn.Module):
             "disp": scaled_disp[..., 0],
             "disps": disps,
         }
+
+
+class Monodepth2Pose(nn.Module):
+    """Two-view pose CNN: ResNet-18 on two stacked RGB frames -> pose
+    decoder -> the relative pose as a transform (the inverse composition of
+    the first predicted frame), translation x the baseline multiplier."""
+
+    def __init__(self, baseline_multiplier=5.4, device=None):
+        super().__init__()
+        self.baseline_multiplier = baseline_multiplier
+        self.encoder = ResnetEncoder(num_input_images=2, device=device)
+        self.decoder = PoseDecoder(num_input_features=1, num_frames_to_predict_for=2,
+                                   device=device)
+
+    def forward(self, img_pair):
+        """img_pair: [N x H x W x 6] two stacked RGB frames in [0, 1].
+
+        Returns [N x 4 x 4] relative poses.
+        """
+        feats = self.encoder(img_pair)
+        axisangle, translation = self.decoder([feats[-1]])
+        T = transformation_from_parameters(axisangle[:, 0, 0], translation[:, 0, 0],
+                                           invert=True)
+        t = T[:, :3, 3:] * self.baseline_multiplier
+        return torch.cat([torch.cat([T[:, :3, :3], t], dim=-1), T[:, 3:]], dim=-2)

@@ -1,8 +1,11 @@
 """ResNet-18 encoder on NHWC tensors.
 
-Counterpart of ``dfvo_tpu/models/resnet_encoder.py``. Submodules carry
-torchvision's names (``encoder.layer1.0.conv1``, ``downsample.0/1``), so
-the reference's monodepth2 ``encoder.pth`` keys map onto them unchanged.
+Counterpart of ``dfvo_tpu/models/resnet_encoder.py``, including the
+multi-image input of the pose network (two stacked RGB frames, a
+6-channel ``conv1``). Submodules carry torchvision's names
+(``encoder.layer1.0.conv1``, ``downsample.0/1``), so the reference's
+monodepth2 ``encoder.pth`` and ``pose_encoder.pth`` keys map onto them
+unchanged.
 """
 
 import torch.nn as nn
@@ -36,9 +39,9 @@ class BasicBlock(nn.Module):
 
 
 class _ResNet(nn.Module):
-    def __init__(self, blocks, device=None):
+    def __init__(self, blocks, in_channels=3, device=None):
         super().__init__()
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False, device=device)
         self.bn1 = FrozenBatchNorm(64, device=device)
         inplanes = 64
         for stage, (planes, n_blocks) in enumerate(zip((64, 128, 256, 512), blocks)):
@@ -52,11 +55,13 @@ class _ResNet(nn.Module):
 
 class ResnetEncoder(nn.Module):
     """ResNet-18 encoder returning the 5-scale feature pyramid, channels
-    [64, 64, 128, 256, 512] at strides [2, 4, 8, 16, 32]."""
+    [64, 64, 128, 256, 512] at strides [2, 4, 8, 16, 32], of
+    ``num_input_images`` RGB frames stacked on the channels (1 for depth,
+    2 for pose)."""
 
-    def __init__(self, device=None):
+    def __init__(self, num_input_images=1, device=None):
         super().__init__()
-        self.encoder = _ResNet((2, 2, 2, 2), device=device)
+        self.encoder = _ResNet((2, 2, 2, 2), 3 * num_input_images, device=device)
 
     def forward(self, x):
         e = self.encoder

@@ -12,7 +12,8 @@ motion carried on the device, the global trajectory chained on the host,
 the optional drawer, and the trajectory file.
 
 Per tracked frame the loop reads the device twice: the PnP decision inside
-``tracking_step`` and the relative pose. The drawer, when it is on, adds
+``tracking_step`` and the relative pose (only the pose with
+``tracking_method: deep_pose``, which skips the tracking step). The drawer, when it is on, adds
 one batched download of what it draws (the tracking mode included). The
 scan execution reads the device twice per chunk: the chunk's decision
 tensors and its poses. Online finetuning (``online_finetune.enable``,
@@ -33,7 +34,7 @@ from ..utils.device import upload
 from ..utils.io import mkdir_if_not_exists
 from ..utils.timer import Timer
 from .frontend import DeepFrontend
-from .tracking import _ITEM9, TrackingConfig, tracking_step
+from .tracking import TrackingConfig, tracking_step
 
 _MODE_NAMES = {0: "Const.", 1: "Ess. Mat.", 2: "PnP", 3: "DeepPose"}
 _ITEM11 = "ROADMAP queue 1 item 11, 'Scale-out and state'"
@@ -75,11 +76,16 @@ def frame_step(frontend, tcfg, variables, img_cur_u8, img_ref_u8, depth_ref_raw,
     Returns:
         dict with ``pose``, ``mode``, ``scale``, ``depth_cur_raw``, the
         flows, keypoints, inliers, ``rigid_flow_diff`` and ``depth_cur``.
+        With ``tracking_method: deep_pose`` the pose is the pose CNN's
+        (mode 3), with scale 1 and no keypoints.
     """
     fo = frontend.infer(variables, _to_unit_float(img_cur_u8), _to_unit_float(img_ref_u8),
                         depth_cur=gt_depth_cur)
+    if tcfg.tracking_method == "deep_pose":
+        return _deep_pose_out(fo)
     tr = tracking_step(rng, fo["flow_fwd"], fo["flow_diff"], fo["depth_cur"], depth_ref_raw,
-                       prev_motion, K, K_inv, tcfg, prev_scale=prev_scale)
+                       prev_motion, K, K_inv, tcfg, prev_scale=prev_scale,
+                       deep_pose=fo.get("deep_pose"))
     return {
         "pose": tr["pose"],
         "mode": tr["mode"],
@@ -94,6 +100,28 @@ def frame_step(frontend, tcfg, variables, img_cur_u8, img_ref_u8, depth_ref_raw,
         "inliers": tr["inliers"],
         "rigid_flow_diff": tr["rigid_flow_diff"],
         "depth_cur": tr["depth_cur"],
+    }
+
+
+def _deep_pose_out(fo):
+    """The frame step's outputs of pure pose-CNN tracking: the pose CNN's
+    pose, mode 3, scale 1, one invalid keypoint."""
+    dev = fo["flow_fwd"].device
+    none = torch.zeros(1, dtype=torch.bool, device=dev)
+    return {
+        "pose": fo["deep_pose"],
+        "mode": torch.full((), 3, dtype=torch.long, device=dev),
+        "scale": torch.ones((), dtype=torch.float32, device=dev),
+        "depth_cur_raw": fo["depth_cur"],
+        "flow_fwd": fo["flow_fwd"],
+        "flow_bwd": fo["flow_bwd"],
+        "flow_diff": fo["flow_diff"],
+        "kp_ref": torch.zeros((1, 2), dtype=torch.float32, device=dev),
+        "kp_cur": torch.zeros((1, 2), dtype=torch.float32, device=dev),
+        "kp_valid": none,
+        "inliers": none,
+        "rigid_flow_diff": torch.zeros_like(fo["flow_diff"]),
+        "depth_cur": fo["depth_cur"],
     }
 
 
@@ -112,9 +140,9 @@ def next_prev_scale(scale, prev_scale):
     return torch.where(scale > 0, scale, prev_scale)
 
 
-def _check_ported(cfg):
-    """Raise for the options of the JAX frame loop not ported yet, and for
-    the options that the scan execution refuses in both packages."""
+def _check_execution(cfg):
+    """Raise for an unknown execution, and for the options that the scan
+    execution refuses in both packages."""
     execution = str(cfg.tpu.get("execution", "frame"))
     if execution not in ("frame", "scan"):
         raise ValueError(f"tpu.execution must be 'frame' or 'scan', got {execution!r}")
@@ -128,13 +156,6 @@ def _check_ported(cfg):
             raise ValueError(
                 "tpu.execution: scan does not support " + ", ".join(unsupported)
                 + " (these need per-frame host state; use tpu.execution: frame)")
-    unported = (
-        (bool(cfg.deep_pose.enable), "deep_pose.enable", _ITEM9),
-        (str(cfg.tracking_method) == "deep_pose", "tracking_method: deep_pose", _ITEM9),
-    )
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _resolve_device(device):
@@ -157,7 +178,7 @@ class DFVO:
 
     def __init__(self, cfg, device=None):
         self.device = _resolve_device(device)
-        _check_ported(cfg)
+        _check_execution(cfg)
         self.cfg = cfg
         self.tracking_stage = 0
         self.global_poses = {0: SE3()}
@@ -410,7 +431,7 @@ class DFVO:
                     # keys fold the true frame ids, so both executions draw
                     # the same RANSAC samples
                     id_pad = ids + [ids[-1]] * (chunk - len(ids))
-                    keys = prng.chunk_keys(self.cfg.seed, id_pad).astype(np.int64)
+                    keys = prng.step_keys(self.cfg.seed, id_pad).astype(np.int64)
                     imgs_dev, keys_dev = self._upload(imgs), self._upload(keys)
                 prev_img = carry[0]  # the previous chunk's last frame, on the device
                 with self.timers.scope("vo_step", "DF-VO"):

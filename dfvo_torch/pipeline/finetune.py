@@ -6,10 +6,11 @@ Counterpart of ``dfvo_tpu/pipeline/finetune.py``:
   edge-aware smoothness of the mean-normalised flow magnitude in both
   directions, and forward-backward consistency, each of the last two
   scaled by 1/2^s;
-* depth: photometric reprojection with the DF-VO pose (its translation
-  divided by the stereo baseline multiplier), identity auto-masking (the
-  per-pixel minimum with the unwarped loss), and normalised-disparity
-  smoothness;
+* depth: photometric reprojection with the pose of ``depth.pose_src``
+  (the DF-VO pose with its translation divided by the stereo baseline
+  multiplier, the pose CNN's, or the DF-VO direction at the pose CNN's
+  length), identity auto-masking (the per-pixel minimum with the unwarped
+  loss), and normalised-disparity smoothness;
 * one Adam step (``optax.adam``'s) over the enabled networks' parameters
   per frame pair, for ``num_frames`` pairs (None: no limit).
 
@@ -31,6 +32,14 @@ from ..utils.device import upload
 from .frontend import forward_backward_consistency, resize_dense_flow
 
 _ITEM11 = "ROADMAP queue 1 item 11, 'Scale-out and state'"
+
+
+def _with_t(T, t):
+    """[B x 4 x 4] transforms T with their translations replaced by ``t``
+    [B x 3]."""
+    T = T.clone()
+    T[:, :3, 3] = t
+    return T
 
 
 class Adam:
@@ -91,9 +100,8 @@ class OnlineFinetuner:
         self.num_frames = self.ft_cfg.num_frames
         self.train_flow = bool(self.ft_cfg.flow.enable)
         self.train_depth = bool(self.ft_cfg.depth.enable)
-        # the depth loss's pose: the DF-VO pose in network units; the pose
-        # CNN's sources (deep_pose, DF-VO2) need the pose CNN, which the
-        # frontend does not have
+        # the depth loss's pose: the DF-VO pose in network units, or one of
+        # the pose CNN's sources (deep_pose, DF-VO2), which need the pose CNN
         self.pose_src = self.ft_cfg.depth.get("pose_src") or "DF-VO"
         if self.pose_src not in ("DF-VO", "deep_pose", "DF-VO2"):
             raise ValueError(
@@ -197,17 +205,26 @@ class OnlineFinetuner:
         if self.train_flow:
             loss = loss + self.flow_loss(merged["flow"], img_ref, img_cur)
         if self.train_depth:
-            poses = self._depth_pose(poses)
+            poses = self._depth_pose(variables, img_ref, img_cur, poses)
             loss = loss + self.depth_loss(merged["depth"], img_ref, img_cur, poses)
         return loss
 
-    def _depth_pose(self, poses):
-        """The pose of the depth loss: the DF-VO pose with its metric
-        translation back in network units (the only source without the
-        pose CNN; ``__init__`` refuses the others)."""
-        poses = poses.clone()
-        poses[:, :3, 3] /= self.frontend.depth_kw["baseline_multiplier"]
-        return poses
+    def _depth_pose(self, variables, img_ref, img_cur, poses):
+        """The pose of the depth loss, per ``depth.pose_src``: 'DF-VO' the
+        DF-VO pose with its metric translation back in network units,
+        'deep_pose' the pose CNN's (on the float32 masters; not trained),
+        'DF-VO2' the DF-VO translation's direction at the pose CNN's
+        length."""
+        if self.pose_src == "DF-VO":
+            return _with_t(poses, poses[:, :3, 3] / self.frontend.depth_kw["baseline_multiplier"])
+        with torch.no_grad():
+            deep = self.frontend.pose_apply(variables["pose"], img_ref, img_cur).to(poses.dtype)
+        if self.pose_src == "deep_pose":
+            return deep
+        deep_scale = torch.linalg.vector_norm(deep[:, :3, 3], dim=-1, keepdim=True)
+        t = poses[:, :3, 3]
+        t_unit = t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+        return _with_t(poses, t_unit * deep_scale)
 
     # -- update -------------------------------------------------------------
     def value_and_grad(self, variables, img_ref, img_cur, poses):

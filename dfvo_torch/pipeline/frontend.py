@@ -1,4 +1,4 @@
-"""Deep-model frontend: depth + bidirectional flow inference.
+"""Deep-model frontend: depth + bidirectional flow (+ pose) inference.
 
 Counterpart of ``dfvo_tpu/pipeline/frontend.py``. Images go in once;
 geometry-ready float32 tensors come out on the same device. Network
@@ -7,7 +7,18 @@ package, and applied with ``torch.func.functional_call`` to module
 templates that hold no weights of their own (built on the meta device).
 Inference (``infer``, ``infer_chunk``) records no gradient; online
 finetuning applies the networks with autograd through ``flow_apply`` and
-``depth_apply``.
+``depth_apply``. With ``deep_pose.enable`` the pose CNN runs in ``infer``
+on the pair (ref, cur) stacked on the channels.
+
+The depth network's skip connections need a height and width that are
+multiples of 32. At any other size (the extended paper's 370x1226) the
+JAX package's depth network fails. There the port feeds it at the flow
+network's feed size (``flow_target_size``, the closest multiples of 32
+with the best aspect match): the images are resized with
+``align_corners=True``, the rule of the flow network's image feed, and
+the scale-0 disparity back to the image size with
+``align_corners=False``, as ``Monodepth2Depth`` resizes it. At multiples
+of 32 nothing changes.
 """
 
 import os
@@ -15,7 +26,7 @@ import os
 import torch
 from torch.func import functional_call
 
-from ..models import LiteFlowNet, Monodepth2Depth
+from ..models import LiteFlowNet, Monodepth2Depth, Monodepth2Pose
 from ..models.convert import init_state_dict
 from ..models.layers import resize_bilinear
 from ..ops.warp import flow_to_coords, grid_sample
@@ -115,23 +126,30 @@ class DeepFrontend:
             )
         if self.flow_kind != "liteflow":
             raise ValueError(f"unknown flow network: {self.flow_kind}")
-        if bool(cfg.deep_pose.enable):
-            raise NotImplementedError(
-                "deep_pose.enable is not ported yet (ROADMAP queue 1, item "
-                "'Deep pose and the optional keypoint filters')"
-            )
         meta = torch.device("meta")
         self.depth_net = Monodepth2Depth(**depth_kw, device=meta)
         self.flow_net = LiteFlowNet(device=meta)
         self.flow_feed = flow_target_size(self.h, self.w, 32)
+        self.depth_feed = (self.h, self.w)
+        if self.h % 32 or self.w % 32:
+            self.depth_feed = flow_target_size(self.h, self.w, 32)
+        self.use_pose_net = bool(cfg.deep_pose.enable)
+        self.pose_net = None
+        if self.use_pose_net:
+            self.pose_net = Monodepth2Pose(
+                baseline_multiplier=depth_kw["baseline_multiplier"], device=meta)
 
     # -- parameters ---------------------------------------------------------
     def init_variables(self, generator):
-        """Seeded random float32 variables on the CPU (no checkpoint)."""
-        return {
+        """Seeded random float32 variables on the CPU (no checkpoint); the
+        pose CNN's, when enabled, are drawn after the others."""
+        variables = {
             "depth": init_state_dict(self.depth_net, generator),
             "flow": init_state_dict(self.flow_net, generator),
         }
+        if self.use_pose_net:
+            variables["pose"] = init_state_dict(self.pose_net, generator)
+        return variables
 
     def load_variables(self, generator):
         """Float32 variables on the CPU: the seeded init, with each network
@@ -139,7 +157,9 @@ class DeepFrontend:
 
         Monodepth2 comes as the model zoo's ``encoder.pth`` and
         ``depth.pth`` in ``depth.deep_depth.pretrained_model``, LiteFlowNet
-        as ``deep_flow.flow_net_weight``; both load straight into the
+        as ``deep_flow.flow_net_weight``, and the pose CNN (with
+        ``deep_pose.enable``) as ``pose_encoder.pth`` and ``pose.pth`` in
+        ``deep_pose.pretrained_model``; all load straight into the
         modules' parameter names.
         """
         variables = self.init_variables(generator)
@@ -156,6 +176,15 @@ class DeepFrontend:
             variables["flow"] = _match_template(_load_checkpoint(flow_path),
                                                 variables["flow"], flow_path)
             print(f"==> Initialize {self.flow_kind} flow net with [{flow_path}]")
+        if self.use_pose_net:
+            pose_dir = str(self.cfg.deep_pose.pretrained_model or "")
+            enc = os.path.join(pose_dir, "pose_encoder.pth")
+            dec = os.path.join(pose_dir, "pose.pth")
+            if os.path.isfile(enc) and os.path.isfile(dec):
+                sd = {"encoder." + k: v for k, v in _load_checkpoint(enc).items()}
+                sd.update({"decoder." + k: v for k, v in _load_checkpoint(dec).items()})
+                variables["pose"] = _match_template(sd, variables["pose"], pose_dir)
+                print(f"==> Initialize Pose-CNN with [{pose_dir}]")
         return variables
 
     def trainable_keys(self, net):
@@ -192,12 +221,28 @@ class DeepFrontend:
 
     def depth_apply(self, depth_vars, imgs):
         """Monodepth2 on [N x H x W x 3] images, with autograd: the
-        network's output dict (``depth``, ``disp``, ``disps`` {0..3})."""
-        return functional_call(self.depth_net, depth_vars, (imgs,), strict=True)
+        network's output dict (``depth``, ``disp`` at H x W, ``disps``
+        {0..3} at the feed size)."""
+        return functional_call(self.depth_net, depth_vars, (self._depth_feed(imgs),),
+                               {"out_hw": (self.h, self.w)}, strict=True)
+
+    def pose_apply(self, pose_vars, img_ref, img_cur):
+        """The pose CNN on [N x H x W x 3] pairs (ref, cur): [N x 4 x 4]
+        poses in the images' dtype."""
+        return functional_call(self.pose_net, pose_vars,
+                               (torch.cat([img_ref, img_cur], dim=-1),), strict=True)
+
+    def _depth_feed(self, imgs):
+        """Images at the depth network's feed size (resized as the flow
+        network's feed is)."""
+        fh, fw = self.depth_feed
+        if (fh, fw) == tuple(imgs.shape[1:3]):
+            return imgs
+        return resize_bilinear(imgs, fh, fw, align_corners=True)
 
     def _depth(self, variables, imgs):
-        out = functional_call(self.depth_net, variables["depth"], (imgs,),
-                              strict=True)
+        out = functional_call(self.depth_net, variables["depth"], (self._depth_feed(imgs),),
+                              {"out_hw": tuple(imgs.shape[1:3])}, strict=True)
         return out["depth"].float()
 
     def _flow(self, variables, img1, img2, pair_mode):
@@ -266,7 +311,8 @@ class DeepFrontend:
         Returns:
             dict with ``depth_cur`` [H x W] (raw metric depth),
             ``flow_fwd`` [H x W x 2] (ref -> cur, full-res pixels),
-            ``flow_bwd`` [H x W x 2] and ``flow_diff`` [H x W].
+            ``flow_bwd`` [H x W x 2], ``flow_diff`` [H x W], and with the
+            pose CNN ``deep_pose`` [4 x 4] (float32).
         """
         img_cur = img_cur[None].to(self.dtype)
         img_ref = img_ref[None].to(self.dtype)
@@ -287,9 +333,12 @@ class DeepFrontend:
 
         flow_full = resize_dense_flow(flow_feed_res, self.h, self.w)
         flow_diff = self._consistency(flow_feed_res[0:1], flow_feed_res[1:2])
-        return {
+        out = {
             "depth_cur": depth_cur,
             "flow_fwd": flow_full[0],
             "flow_bwd": flow_full[1],
             "flow_diff": flow_diff[0],
         }
+        if self.use_pose_net:
+            out["deep_pose"] = self.pose_apply(variables["pose"], img_ref, img_cur)[0].float()
+        return out

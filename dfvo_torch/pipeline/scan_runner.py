@@ -10,13 +10,21 @@ recurrences: the scale-jump guard needs the previous frame's scale, and
 the constant-motion model the previous frame's pose. The batched step runs
 with dummies for both and defers the PnP fallback; then
 
-1. the chunk's decision tensors (each frame's scale, mode and ``need_pnp``)
-   come to the host in one read, the chunk's only one;
+1. the chunk's decision tensors (each frame's scale, mode, ``need_pnp``
+   and spike flag) come to the host in one read, the chunk's only one;
 2. the scale-spike pass runs there over the T float32 scales, with the
    float32 products of the JAX package's ``spike_fix``;
 3. the PnP fallback runs once, batched over the frames that need it;
 4. the constant-motion poses are put in by one gather whose indices the
    host derives from the modes, and the scale carry is updated.
+
+Iterative scale recovery (seeded by the previous frame's scale) makes the
+JAX package scan its whole step over the chunk. Of that step only the
+scale stage reads the carry, and the carry is only the scale: the
+constant-motion pose and the PnP fallback do not feed back into it. So
+the batched step runs its scale stage frame by frame with the running
+scale on the device and the guard applied there (step 2 is skipped), and
+steps 1, 3 and 4 stay as they are: still one host read per chunk.
 
 Padded frames at the end of a last chunk are tracked like any other and
 dropped by the caller.
@@ -30,7 +38,6 @@ from ..utils.device import upload
 from .dfvo import depth_only
 from .frontend import DeepFrontend
 from .tracking import (
-    _ITEM9,
     TRACK_MODE_CONST,
     TRACK_MODE_ESSENTIAL,
     TRACK_MODE_PNP,
@@ -100,15 +107,12 @@ def carried_scale(scales, prev_scale):
 
 def make_chunk_step(frontend, tcfg):
     """The chunk step and the first frame's depth function for a frontend
-    and a tracking configuration (``scale_recovery.method: simple``).
+    and a tracking configuration.
 
     Returns:
         (chunk_step, init_depth).
     """
-    if tcfg.scale_method == "iterative":
-        # the JAX package scans its sequential step over the chunk for it
-        raise NotImplementedError(
-            f"scale_recovery.method: iterative is not ported yet ({_ITEM9})")
+    iterative = tcfg.scale_method == "iterative"
 
     @torch.no_grad()
     def chunk_step(variables, imgs_u8, carry, rngs, K, K_inv, oracle=None, info=None):
@@ -122,8 +126,8 @@ def make_chunk_step(frontend, tcfg):
                 chunk, its raw depth, its relative pose and the running
                 scale (a number; it lives on the host, where the spike
                 pass runs).
-            rngs: [T x 8 x 2] int64 split keys of the frames on the device
-                (``prng.chunk_keys``).
+            rngs: [T x 13 x 2] int64 step keys of the frames on the device
+                (``prng.step_keys``).
             K, K_inv: [3 x 3] float32 intrinsics on the device.
             oracle: optional dict of ``depths`` [T x H x W], ``flow_fwd``
                 [T x H x W x 2] and ``flow_diff`` [T x H x W]; tracking
@@ -145,18 +149,19 @@ def make_chunk_step(frontend, tcfg):
                              for k in ("depths", "flow_fwd", "flow_diff")})
         # the reference depth of pair i is the depth of frame i
         depth_refs = torch.cat([depth_ref0[None], fo["depths"][:-1]], dim=0)
+        prev_scale0 = np.float32(float(prev_scale0))
         tr = tracking_step_chunk(rngs, fo["flow_fwd"], fo["flow_diff"], fo["depths"],
-                                 depth_refs, K, K_inv, tcfg)
+                                 depth_refs, K, K_inv, tcfg, prev_scale=prev_scale0)
 
         # the chunk's one host read
         decision = torch.stack([tr["scale"], tr["mode"].to(torch.float32),
-                                tr["need_pnp"].to(torch.float32)]).cpu().numpy()
+                                tr["need_pnp"].to(torch.float32),
+                                tr["spike"].to(torch.float32)]).cpu().numpy()
         scales = decision[0]
         modes = decision[1].astype(np.int64)
         need = decision[2] > 0
-        prev_scale0 = np.float32(float(prev_scale0))
-        spikes = np.zeros(len(scales), bool)
-        if tcfg.scale_jump_guard > 0:
+        spikes = decision[3] > 0  # the guard of the iterative scale stage
+        if tcfg.scale_jump_guard > 0 and not iterative:
             scales, modes, need, spikes = spike_pass(scales, modes, need, prev_scale0, tcfg)
 
         # the deferred PnP fallback, batched over the frames that need it,
@@ -239,7 +244,7 @@ class ScanRunner:
             pad = t - len(chunk)
             if pad:  # a fixed chunk shape; padded frames are dropped below
                 chunk = np.concatenate([chunk, chunk[-1:].repeat(pad, 0)])
-            keys = prng.chunk_keys(rng_seed, range(start, start + t)).astype(np.int64)
+            keys = prng.step_keys(rng_seed, range(start, start + t)).astype(np.int64)
             poses, _, carry = self._chunk_step(variables, upload(chunk, dev), carry,
                                                upload(keys, dev), Kt, Kit)
             rel.append(poses.cpu().numpy()[: t - pad])

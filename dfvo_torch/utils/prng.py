@@ -7,8 +7,9 @@ the RANSAC draws then hash the two 32-bit words of a key
 a numpy ``uint32[2]`` array, and the functions below reproduce
 ``jax.random`` bit for bit (threefry2x32 with JAX's
 ``jax_threefry_partitionable`` layout, the default since JAX 0.5).
-:func:`chunk_keys` derives a whole chunk's split keys at once, for the
-scan runner to upload with the chunk's images.
+:func:`chunk_keys` derives a whole chunk's split keys at once and
+:func:`step_keys` adds the folded keys of the iterative scale recovery to
+them, for the scan runner to upload with the chunk's images.
 """
 
 import numpy as np
@@ -91,3 +92,36 @@ def chunk_keys(seed, ids, num=8):
 def key_data(key):
     """``jax.random.key_data``: the key's two uint32 words."""
     return np.asarray(key, np.uint32).reshape(2)
+
+
+# the tracking step's iterative scale recovery folds its stage key (row 2
+# of the split) with each of its iterations
+ITER_SCALE_STAGE = 2
+ITER_SCALE_ITERS = 5
+
+
+def fold_in_keys(keys, num):
+    """``fold_in(key, i)`` for i in range(num) of every key of a uint32
+    [... x 2] array: [... x num x 2]."""
+    keys = np.asarray(keys, np.uint32)
+    shape = keys.shape[:-1] + (num,)
+    k0 = np.broadcast_to(keys[..., 0, None], shape)
+    k1 = np.broadcast_to(keys[..., 1, None], shape)
+    data = np.broadcast_to(np.arange(num, dtype=np.uint64), shape)
+    f0, f1 = _threefry2x32_np(k0, k1, np.zeros(shape, np.uint64), data)
+    return np.stack([f0, f1], axis=-1).astype(np.uint32)
+
+
+def with_iter_keys(split_keys):
+    """A step's split keys [... x 8 x 2] followed by the iterative scale
+    recovery's ``fold_in(split[2], i)``, i < 5: [... x 13 x 2]."""
+    split_keys = np.asarray(split_keys, np.uint32)
+    folded = fold_in_keys(split_keys[..., ITER_SCALE_STAGE, :], ITER_SCALE_ITERS)
+    return np.concatenate([split_keys, folded], axis=-2)
+
+
+def step_keys(seed, ids):
+    """Every key the tracking step of frame ``i`` of ``ids`` draws from:
+    :func:`chunk_keys` with the iterative scale's folded keys appended, as
+    one uint32 [len(ids) x 13 x 2] array."""
+    return with_iter_keys(chunk_keys(seed, ids))

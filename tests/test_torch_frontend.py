@@ -102,10 +102,6 @@ def test_frontend_refuses_unported_options():
     cfg.deep_flow.network = "hd3"
     with pytest.raises(NotImplementedError, match="HD3"):
         TDeepFrontend(cfg, "cpu")
-    cfg = _cfg(TConfigLoader)
-    cfg.deep_pose.enable = True
-    with pytest.raises(NotImplementedError, match="Deep pose"):
-        TDeepFrontend(cfg, "cpu")
 
 
 def test_prepare_variables_follows_config_dtype():

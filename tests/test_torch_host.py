@@ -429,24 +429,6 @@ def test_dfvo_defaults_to_cuda_and_raises_without_it(layouts, monkeypatch):
         DFVO(_cfg(TConfigLoader, layouts))
 
 
-@pytest.mark.parametrize("option,item", [
-    ("deep_pose.enable=True", "item 9"),
-    ("tracking_method=deep_pose", "item 9"),
-])
-def test_unported_options_name_their_item(layouts, option, item):
-    from dfvo_torch.pipeline.dfvo import DFVO
-
-    cfg = _cfg(TConfigLoader, layouts)
-    path, value = option.split("=")
-    *parents, leaf = path.split(".")
-    node = cfg
-    for p in parents:
-        node = node[p]
-    node[leaf] = {"True": True}.get(value, value)
-    with pytest.raises(NotImplementedError, match=item):
-        DFVO(cfg, device="cpu")
-
-
 def test_state_checkpoints_name_their_item(tmp_path):
     from dfvo_torch.pipeline.dfvo import DFVO
 

@@ -52,7 +52,7 @@ def _t(a):
 
 
 def _keys(seed, ids):
-    return _t(prng.chunk_keys(seed, ids).astype(np.int64))
+    return _t(prng.step_keys(seed, ids).astype(np.int64))
 
 
 # -- (a) the batched draws ----------------------------------------------------
@@ -379,10 +379,8 @@ def test_cli_scan_execution_writes_trajectory(kitti_offset, tmp_path):
     (lambda c: (c.online_finetune.__setitem__("enable", True),
                 c.online_finetune.depth.update(enable=True, pose_src="deep_pose")),
      ValueError, "needs the pose CNN"),
-    (lambda c: c.scale_recovery.__setitem__("method", "iterative"), NotImplementedError,
-     "item 9"),
     (lambda c: c.tpu.__setitem__("execution", "sideways"), ValueError, "execution"),
-], ids=["depth_src", "deep_pose.enable", "deep_pose", "finetune", "iterative", "sideways"])
+], ids=["depth_src", "deep_pose.enable", "deep_pose", "finetune", "sideways"])
 def test_scan_refusals(kitti_offset, tmp_path, edit, error, match):
     cfg = _cli_cfg(TConfigLoader, kitti_offset, tmp_path, "scan")
     edit(cfg)

@@ -215,19 +215,3 @@ def test_from_cfg_matches_jax():
 
     with pytest.raises(ValueError, match="kp_src"):
         both(bad_src)
-
-
-@pytest.mark.parametrize("field, value, item", [
-    ("scale_method", "iterative", "item 9"),
-    ("e_iterative_kp", True, "item 9"),
-    ("pnp_iterative_kp", True, "item 9"),
-    ("depth_consistency", True, "item 9"),
-    ("kp_method", "bestN", "item 7"),
-    ("kp_method", "sampled", "item 7"),
-])
-def test_unported_options_raise(field, value, item):
-    z = torch.zeros(8, 12)
-    tcfg = dataclasses.replace(T_TCFG, height=8, width=12, **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        T_tr.tracking_step(prng.PRNGKey(0), torch.zeros(8, 12, 2), z, z, z, torch.eye(4),
-                           torch.from_numpy(K), torch.from_numpy(K_inv), tcfg)
