@@ -117,14 +117,31 @@ seconds, none caught:
    tracking_method: deep_pose (mode 3, one host read per frame) and once
    with depth consistency under hybrid tracking (a depth-consistency map
    per frame, two reads).
+15. hd3: default_configuration.yml with deep_flow.network: hd3 (192x640,
+   bf16, seeded weights). The D = 4 cost volume at HD3's five level shapes
+   (3x10x512 .. 48x160x64) at N = 2 and 64 against its plain version
+   (tensor_core up to 256 channels, cuda_core at 512) and its times per
+   network call at N = 64 and N = 2 in bf16 and at N = 2 in float32 (an
+   update) beside the bound; HD3 infer in float32 on the card against the
+   CPU on one pair; the CLI in frame execution over HD3_FRAMES frames
+   (drawer on) and in scan execution over HD3_SCAN_FRAMES frames, then both
+   with flow finetuning at scales 1-5 (HD3_FT_PAIRS updates): finite poses,
+   launches (5 cost volumes at D = 4 and 4 disparity heads per network
+   call, 5 float32 cost volumes and their backward passes per update),
+   host reads (3 per frame, 2 per chunk) and the timer scopes; bench.py's
+   oracle drive through one HD3 chunk_step (every frame by E, held to the
+   GT); CUDA-event ms, kernels, busy share, host syncs and peak memory of
+   infer, infer_chunk, frame_step, chunk_step and one update; one update
+   (float32, scales 1-5) on the card against the CPU.
 
 Weights and inputs are drawn from SEED.
 
 It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
-finetuning, a JSON line of the extend phase, a JSON line of the kernels
-(launches from the slice phase, from the CLI run as launches_cli, from the
+finetuning, a JSON line of the extend phase, a JSON line of the hd3 phase,
+a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
+own, correlation_d4; launches from the slice phase, from the CLI run as launches_cli, from the
 scan execution as launches_scan, from the finetuning updates of both CLI
 runs as launches_finetune and from the extend phase's two CLI runs as
 launches_extend; their times at 370x1226 as at_370x1226),
@@ -340,8 +357,9 @@ class Checker:
 
     def __init__(self, seed):
         self.rng = np.random.default_rng(seed)
-        self.max_abs_err = {k: 0.0 for k in PER_CALL}  # bf16, main-path variant
-        self.max_abs_err_f32 = {k: 0.0 for k in PER_CALL}
+        # bf16, main-path variant; HD3's D = 4 cost volume on its own
+        self.max_abs_err = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
+        self.max_abs_err_f32 = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
 
     def randn(self, shape, scale=1.0):
         a = self.rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
@@ -352,12 +370,14 @@ class Checker:
         return torch.from_numpy(a).cuda()
 
     def compare(self, kernel, label, kernel_fn, plain_fn, inputs, prep=None,
-                main_path=True):
+                main_path=True, expect=None, record=None):
         """Kernel vs plain version in float32, then in bfloat16 against the
         plain version in float32 on the same bf16-rounded inputs. ``prep``
         re-lays the kernel's inputs (same values) before the launch. At a
         main-path shape the bf16 launch must take the kernel's main-path
-        variant."""
+        variant, or ``expect`` where given (a path's shape that takes
+        another); the errors count under ``record`` (default ``kernel``)."""
+        record = record or kernel
         prep = prep or (lambda t: t)
         counter = launch_counts()[kernel]
         # float32: max abs error <= 1e-4 * max(1, max|ref|)
@@ -368,14 +388,14 @@ class Checker:
         torch.cuda.synchronize()
         if not err <= 1e-4 * scale:
             fail(f"{kernel} {label} float32: max abs err {err:.3e} > {1e-4 * scale:.3e}")
-        self.max_abs_err_f32[kernel] = max(self.max_abs_err_f32[kernel], err)
+        self.max_abs_err_f32[record] = max(self.max_abs_err_f32[record], err)
         # bfloat16: |got - ref| <= 2e-2 |ref| (output rounding) + the float32
         # bound above (summation order)
         inputs_bf = [t.bfloat16() for t in inputs]
         before = dict(getattr(counter, "variant_launches", {}))
         got = kernel_fn(*[prep(t) for t in inputs_bf])
         after = getattr(counter, "variant_launches", {})
-        variant = next((v for v in after if after[v] != before.get(v)), "cuda_core")
+        ran = next((v for v in after if after[v] != before.get(v)), "cuda_core")
         if got.dtype != torch.bfloat16:
             fail(f"{kernel} {label}: bfloat16 input gave {got.dtype}")
         ref = plain_fn(*[t.float() for t in inputs_bf])
@@ -384,13 +404,14 @@ class Checker:
         scale = max(1.0, ref.abs().max().item())
         torch.cuda.synchronize()
         if not excess <= 1e-4 * scale:
-            fail(f"{kernel} {label} bfloat16 ({variant}): error exceeds 2e-2 |ref| "
+            fail(f"{kernel} {label} bfloat16 ({ran}): error exceeds 2e-2 |ref| "
                  f"by {excess:.3e}")
         if main_path:
-            if variant != MAIN_VARIANT[kernel]:
-                fail(f"{kernel} {label} bfloat16 ran {variant}, not {MAIN_VARIANT[kernel]}")
-            self.max_abs_err[kernel] = max(self.max_abs_err[kernel], abs_err.max().item())
-        print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok ({variant}, "
+            want = expect or MAIN_VARIANT[kernel]
+            if ran != want:
+                fail(f"{kernel} {label} bfloat16 ran {ran}, not {want}")
+            self.max_abs_err[record] = max(self.max_abs_err[record], abs_err.max().item())
+        print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok ({ran}, "
               f"max abs err {abs_err.max().item():.2e})", flush=True)
 
 
@@ -426,8 +447,8 @@ def kernels_phase(chk):
     check_reg(chk, "unaligned [2, 24, 80] k5", 2, 24, 80, 5, prep=misaligned, main_path=False)
     big = torch.sign(chk.randn((2, 12, 40, 49))) * chk.rand((2, 12, 40, 49), 300.0, 305.0)
     check_reg(chk, "+-300 [2, 12, 40] k7", 2, 12, 40, 7, raw=big, main_path=False)
-    # the cost volume's other window (HD3, off this path) and its stride-2
-    # form (tensor_core in bf16)
+    # the cost volume's other window (HD3's; its shapes in the hd3 phase)
+    # and its stride-2 form (tensor_core in bf16)
     f1, f2 = chk.randn((2, 24, 80, 64)), chk.randn((2, 24, 80, 64))
     chk.compare("correlation", "D=4 [2, 24, 80, 64]",
                 lambda a, b: correlation_cuda(a, b, 4, 1),
@@ -549,8 +570,9 @@ def reset_launch_counts():
     counters = launch_counts()
     for fn in counters.values():
         fn.launches = 0
-        for v in getattr(fn, "variant_launches", {}):
-            fn.variant_launches[v] = 0
+        for counts in (getattr(fn, "variant_launches", {}), getattr(fn, "disp_launches", {})):
+            for v in counts:
+                counts[v] = 0
     return counters
 
 
@@ -921,10 +943,11 @@ def times_phase(chk, fe, variables, imgs):
     return infer_ms, per_frame_chunk, rows, sums
 
 
-def kernel_times(cases):
+def kernel_times(cases, names=tuple(PER_CALL), per="infer_chunk network call"):
     """Device ms (torch.profiler) and CUDA-event ms of each case beside its
     plain version, its library call and its bound; and the sums per
-    `infer_chunk` network call, weighted by the launches at each shape."""
+    ``per`` (an `infer_chunk` network call), weighted by the launches at
+    each shape, for each kernel of ``names``."""
     rows = []
     print("  device ms per call (torch.profiler); event: CUDA-event ms per call "
           "back to back, host gaps included")
@@ -960,7 +983,7 @@ def kernel_times(cases):
               f"{row['plain_ms']:8.4f}  {lib:>10s}  {bound_ms:.4f} ({bound_by:10s})  "
               f"{100 * row['share_of_bound']:5.1f} %  {row['launches_per_call']}", flush=True)
     sums = {}
-    for name in PER_CALL:
+    for name in names:
         mine = [r for r in rows if r["kernel"] == name and r["launches_per_call"]]
         tot = lambda key: sum(r["launches_per_call"] * r[key] for r in mine)
         by_bytes = sum(r["launches_per_call"] * r["bound_ms"] for r in mine
@@ -975,7 +998,7 @@ def kernel_times(cases):
         s = sums[name]
         lib = "none: no single PyTorch call computes this" if s["library_ms"] is None \
             else f"{s['library_ms']:.4f} ms"
-        print(f"  per infer_chunk network call, {name}: {s['launches_per_call']} launches, "
+        print(f"  per {per}, {name}: {s['launches_per_call']} launches, "
               f"kernel {s['ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({s['bound_by']}), "
               f"share {100 * s['bound_ms'] / s['ms']:.1f} %, plain {s['plain_ms']:.4f} ms, "
               f"library {lib}")
@@ -2106,6 +2129,7 @@ def cli_run(seed, root, execution, frames, custom):
             "losses": torch.stack(losses.losses).cpu().numpy() if losses.losses else np.zeros(0),
             "launches": {k: fn.launches for k, fn in counters.items()},
             "variants": {k: dict(fn.variant_launches) for k, fn in counters.items()},
+            "disp_launches": dict(counters["correlation"].disp_launches),
             "backward_calls": {k: fn.backward_calls for k, fn in functions.items()}}
 
 
@@ -2273,7 +2297,7 @@ def ft_compare(got, want):
 def ft_card_vs_cpu(seed, cfg):
     """One update at 192x640 in float32 on the card, with TF32 off and with
     cuDNN's TF32 convolutions (PyTorch's default, as the CLIs ran), against
-    the CPU."""
+    the CPU, for each network that ``cfg`` finetunes."""
     tf32 = torch.backends.cudnn.allow_tf32
     runs = {}
     try:
@@ -2285,6 +2309,7 @@ def ft_card_vs_cpu(seed, cfg):
     runs["cpu"] = ft_one_update("cpu", seed, cfg)
     runs["cpu_perturbed"] = ft_one_update("cpu", seed, cfg, perturb=1e-6)
     out = {"loss_cpu": runs["cpu"][0], "cpu_s": runs["cpu"][3]}
+    nets = list(runs["cpu"][1])  # the finetuned networks
     for name, limits in (("cpu_perturbed", None), ("card_tf32_off", FT_F32_LIMITS),
                          ("card", FT_TF32_LIMITS)):
         c = out[name] = ft_compare(runs[name], runs["cpu"])
@@ -2296,13 +2321,13 @@ def ft_card_vs_cpu(seed, cfg):
                   f"{c[net]['grad_rel_per_tensor_median']:.2e}, max "
                   f"{c[net]['grad_rel_per_tensor_max']:.2e}), Adam step same sign "
                   f"{100 * c[net]['step_same_sign_share']:.2f} %, max diff "
-                  f"{c[net]['step_max_abs_diff']:.2e}" for net in ("flow", "depth"))
+                  f"{c[net]['step_max_abs_diff']:.2e}" for net in nets)
               + f"; limits {limits}", flush=True)
         if limits is None:  # the CPU's own sensitivity: a yardstick, no check
             continue
         if not c["loss_rel"] <= limits["loss_rel"]:
             fail(f"finetune {name} vs CPU: loss {c['loss']} vs {runs['cpu'][0]}")
-        for net in ("flow", "depth"):
+        for net in nets:
             if not (c[net]["grad_rel"] <= limits[f"{net}_grad_rel"]
                     and c[net]["step_same_sign_share"] >= limits[f"{net}_same_sign"]):
                 fail(f"finetune {name} vs CPU, {net}: {c[net]}")
@@ -2778,6 +2803,360 @@ def extend_phase(chk, seed, out_dir):
     return result
 
 
+# HD3 (hd3 phase): default_configuration.yml with deep_flow.network: hd3 at
+# its 192x640 (HD3's feed: multiples of 64, 192x640 itself), bf16. Per
+# network call: the cost volume at D = 4 at HD3's five levels and the depth
+# network's four disparity heads; an update (flow only) launches the five
+# cost volumes in float32
+HD3_PER_CALL = {"correlation": 5, "reg_dist_filter": 0, "head_conv": 4}
+HD3_FT_PER_UPDATE = {"correlation": 5, "reg_dist_filter": 0, "head_conv": 0}
+HD3_CHANNELS = (512, 512, 256, 128, 64)
+HD3_BATCHES = (2, 64)
+# frame execution (drawer on) and scan execution (a full chunk of 32 and a
+# padded one); then both with flow finetuning at scales 1-5, HD3_FT_PAIRS
+# updates each
+HD3_FRAMES = 8
+HD3_SCAN_FRAMES = 1 + 32 + 5
+HD3_FT_PAIRS = 3
+# card (float32, TF32 off) vs CPU, one 192x640 pair through HD3 infer: depth
+# relative, flows in px at all but HD3_FLIP_SHARE of the pixels (a 2x2 block
+# whose probabilities tie within rounding is chosen either way, and moves a
+# vector by whole units)
+HD3_DEPTH_RTOL, HD3_FLOW_ATOL_PX, HD3_FLIP_SHARE = 1e-3, 1e-2, 1e-3
+
+
+def hd3_corr_shapes(feed):
+    """HD3's cost-volume shapes, coarse to fine: level l of the feed at
+    1/2^(6-l), with the encoder's channels there."""
+    return tuple((l, (feed[0] >> (6 - l), feed[1] >> (6 - l), c))
+                 for l, c in enumerate(HD3_CHANNELS))
+
+
+def hd3_variant(c):
+    """The variant a bf16 D = 4 launch takes at ``c`` channels."""
+    from dfvo_torch.ops.pallas_corr import TC_MAX_CHANNELS
+
+    return "tensor_core" if c <= TC_MAX_CHANNELS else "cuda_core"
+
+
+def hd3_load_cfg(dtype=None, finetune=False):
+    cfg = load_cfg(dtype)
+    cfg.deep_flow.network = "hd3"
+    if finetune:
+        cfg.online_finetune.enable = True
+        cfg.online_finetune.flow.enable = True
+        cfg.online_finetune.flow.scales = [1, 2, 3, 4, 5]
+        cfg.online_finetune.depth.enable = False
+    return cfg
+
+
+def hd3_cases(chk, shapes, n, dtype):
+    """The D = 4 cost volume at HD3's five shapes at batch ``n`` in
+    ``dtype``, one launch each per network call."""
+    from dfvo_torch.ops.correlation import correlation_plain
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+
+    size = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_BF16_TC if dtype == torch.bfloat16 else PEAK_F32
+    cases = []
+    for l, (h, w, c) in shapes:
+        f1, f2 = chk.randn((n, h, w, c)).to(dtype), chk.randn((n, h, w, c)).to(dtype)
+        cases.append(dict(
+            kernel="correlation_d4", shape=f"L{l} [{n}, {h}, {w}, {c}] {str(dtype)[6:]}", n=n,
+            per_call=1,
+            kfn=lambda f1=f1, f2=f2: correlation_cuda(f1, f2, 4, 1),
+            pfn=lambda f1=f1, f2=f2: correlation_plain(f1, f2, 4, 1), lfn=None,
+            bound=bound(size * (2 * n * h * w * c + n * h * w * 81),
+                        2 * n * h * w * 81 * c, peak)))
+    return cases
+
+
+def hd3_cli(seed, name, execution, frames, finetune):
+    """The CLI with deep_flow.network: hd3 (and flow finetuning at scales
+    1-5 for HD3_FT_PAIRS pairs), the default YAML's other options."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "hd3", name)
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    os.makedirs(root, exist_ok=True)
+    custom = os.path.join(root, "custom.yml")
+    with open(custom, "w") as f:
+        f.write(f'seq: "{RUN_SEQ}"\n'
+                f"directory: {{img_seq_dir: {data}/odom_data, gt_pose_dir: {data}/gt_poses, "
+                f"result_dir: {result}}}\n"
+                "deep_flow: {network: hd3}\n"
+                f"tpu: {{execution: {execution}}}\n")
+        if finetune:
+            f.write(f"online_finetune: {{enable: True, num_frames: {HD3_FT_PAIRS}, "
+                    "flow: {enable: True, scales: [1, 2, 3, 4, 5]}, depth: {enable: False}}\n")
+    r = cli_run(seed, root, execution, frames, custom)
+    r["result"] = result
+    return r
+
+
+def hd3_check_cli(r, execution, frames, finetune):
+    """An HD3 CLI run's checks: the configuration, the trajectory, the
+    launches (all cost volumes at D = 4), the updates, the host reads and
+    the timer scopes; returns its summary."""
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    vo = r["vo"]
+    cfg, fe = vo.cfg, vo.frontend
+    tracked = frames - 1
+    label = f"hd3 {execution}{' finetune' if finetune else ''}"
+    if fe.flow_kind != "hd3" or fe.flow_feed != (192, 640) or str(fe.dtype) != "torch.bfloat16" \
+            or (vo.finetuner is not None) != finetune:
+        fail(f"{label}: the configuration did not take ({fe.flow_kind}, {fe.flow_feed}, "
+             f"{fe.dtype})")
+    traj = load_poses_from_txt(os.path.join(r["result"], f"{RUN_SEQ}.txt"))
+    if sorted(traj) != list(range(frames)) or not all(np.isfinite(p).all()
+                                                    for p in traj.values()):
+        fail(f"{label}: {sorted(traj)} poses, expected {frames} finite")
+    n_calls = tracked if execution == "frame" else math.ceil(tracked / int(cfg.tpu.scan_chunk))
+    updates = min(tracked, HD3_FT_PAIRS) if finetune else 0
+    if finetune:
+        losses = r["losses"]
+        if vo.finetune_cnt != updates or len(losses) != updates or not np.isfinite(losses).all():
+            fail(f"{label}: {vo.finetune_cnt} updates, losses {losses}, expected {updates}")
+    infer = {k: n_calls * HD3_PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    want = {k: infer[k] + updates * HD3_FT_PER_UPDATE[k] for k in PER_CALL}
+    want_ft = {k: updates * HD3_FT_PER_UPDATE[k] for k in PER_CALL}
+    tc_levels = sum(hd3_variant(c) == "tensor_core" for c in HD3_CHANNELS)
+    want_corr = {"tensor_core": n_calls * tc_levels,
+                 "cuda_core": n_calls * (5 - tc_levels) + want_ft["correlation"]}
+    print(f"  {label}: launches {r['launches']} (expected {want}: {HD3_PER_CALL} per network "
+          f"call, {HD3_FT_PER_UPDATE} per update), by window {r['disp_launches']}, by variant "
+          f"{r['variants']}, Function backward passes {r['backward_calls']}")
+    if r["launches"] != want or r["disp_launches"] != {3: 0, 4: want["correlation"]} \
+            or r["variants"]["correlation"] != want_corr \
+            or r["variants"]["head_conv"]["tensor_core"] != infer["head_conv"] \
+            or (finetune and r["backward_calls"] != want_ft):
+        fail(f"{label}: launches {r['launches']}, by window {r['disp_launches']}, by variant "
+             f"{r['variants']}, backward passes {r['backward_calls']}; expected {want}, "
+             f"correlation {want_corr}")
+    if execution == "frame":
+        reads = RUN_HOST_READS[vo.drawer is not None]
+        syncs, where = r["rec"].syncs, r["rec"].where
+        want_syncs = [0] + [reads] * tracked
+    else:
+        windows = r["rec"].windows()
+        syncs = [len(x) for x in windows]
+        where = {}
+        for loc in (loc for x in windows for loc in x):
+            where[loc] = where.get(loc, 0) + 1
+        want_syncs = [0] + [SCAN_HOST_READS] * n_calls + [0]
+    if syncs != want_syncs:
+        fail(f"{label}: host reads {syncs}, expected {want_syncs}; by source line {where}")
+    times = vo.timers.timers
+    scopes = {"data_loading", "depth_cnn", "vo_step", "DF-VO"} | ({"finetune"} if finetune
+                                                                    else set())
+    if vo.drawer is not None:
+        scopes.add("visualization")
+    if not scopes <= set(times):
+        fail(f"{label}: timer scopes {sorted(times)}, expected {sorted(scopes)}")
+    per_frame = {k: 1e3 * sum(times[k]["times"]) / tracked for k in sorted(scopes)
+                 if k != "depth_cnn"}
+    df_vo = [1e3 * t for t in times["DF-VO"]["times"]]
+    print(f"  {label}: {frames} frames, main() in {r['wall']:.2f} s; per tracked frame (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_frame.items())
+          + f"; DF-VO per {'frame' if execution == 'frame' else 'chunk'} (ms) "
+          + str([round(t, 2) for t in df_vo]) + f"; host reads {syncs} by source line {where}; "
+          f"peak memory {r['peak'] / 2**30:.2f} GiB", flush=True)
+    return {"frames": frames, "updates": updates, "ms_per_tracked_frame": per_frame,
+            "df_vo_ms": df_vo, "host_reads": syncs, "host_reads_by_line": where,
+            "launches": r["launches"], "d4_launches": r["disp_launches"][4],
+            "d4_per_network_call": HD3_PER_CALL["correlation"],
+            "d4_per_update": HD3_FT_PER_UPDATE["correlation"],
+            "variants": r["variants"], "peak_mem_gib": r["peak"] / 2**30}
+
+
+def hd3_infer_card_vs_cpu(seed):
+    """HD3 infer in float32 on the card and on the CPU, one 192x640 pair,
+    the seeded weights."""
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+
+    cfg = hd3_load_cfg("float32")
+    h, w = cfg.image.height, cfg.image.width
+    variables = DeepFrontend(cfg, "cpu").init_variables(torch.Generator().manual_seed(seed))
+    imgs = torch.from_numpy(make_frames(seed, 2, h, w)).float() / 255.0
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fe = DeepFrontend(cfg, device)
+        t0 = time.perf_counter()
+        out = fe.infer(fe.prepare_variables(variables), imgs[1].to(device), imgs[0].to(device))
+        outs[device] = ({k: v.cpu() for k, v in out.items()}, time.perf_counter() - t0)
+    (got, tg), (want, tc) = outs["cuda"], outs["cpu"]
+    res = {"depth_cur_rel": ((got["depth_cur"] - want["depth_cur"]).abs()
+                             / want["depth_cur"].abs()).max().item()}
+    for key in ("flow_fwd", "flow_bwd", "flow_diff"):
+        err = (got[key] - want[key]).abs()
+        if err.dim() == 3:
+            err = err.amax(-1)
+        res[key] = {"max_abs_px": err.max().item(),
+                    "share_over_atol": (err > HD3_FLOW_ATOL_PX).float().mean().item(),
+                    "max_abs_ref_px": want[key].abs().max().item()}
+    print(f"  HD3 infer f32, card ({tg:.2f} s) vs CPU ({tc:.2f} s), one {w}x{h} pair: depth "
+          f"relative {res['depth_cur_rel']:.2e} (limit {HD3_DEPTH_RTOL:g}); " + "; ".join(
+              f"{k} max {v['max_abs_px']:.2e} px on |{v['max_abs_ref_px']:.1f}| px, "
+              f"{100 * v['share_over_atol']:.3f} % over {HD3_FLOW_ATOL_PX:g} px"
+              for k, v in res.items() if k != "depth_cur_rel")
+          + f" (limit {100 * HD3_FLIP_SHARE:g} %)", flush=True)
+    if not res["depth_cur_rel"] <= HD3_DEPTH_RTOL or any(
+            res[k]["share_over_atol"] > HD3_FLIP_SHARE
+            for k in ("flow_fwd", "flow_bwd", "flow_diff")):
+        fail(f"hd3 infer card vs CPU: {res}")
+    return res
+
+
+def hd3_time(name, fn, out_dir, chunk=None):
+    """CUDA-event ms, kernels, busy share, host syncs and peak memory of
+    one call."""
+    syncs = count_syncs(fn)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ms = time_cuda(fn, reps=1, rounds=5)
+    prof = profile_call(fn, f"hd3_{name}", out_dir)
+    out = {"ms": ms, "host_syncs": syncs, "peak_mem_gib": peak,
+           **{k: v for k, v in prof.items() if k != "top"}}
+    if chunk:
+        out["ms_per_frame"] = ms / chunk
+    print(f"  {name}: {ms:.2f} ms (CUDA events, median)"
+          + (f", {ms / chunk:.3f} ms/frame over {chunk}" if chunk else "")
+          + f"; {syncs} host syncs, {prof['kernels']} kernels, busy "
+          f"{100 * prof['busy_share']:.1f} %, peak {peak:.2f} GiB above the resident",
+          flush=True)
+    return out
+
+
+@phase("hd3")
+def hd3_phase(chk, seed, out_dir):
+    """HD3 (deep_flow.network: hd3) at 192x640 bf16: the D = 4 cost volume
+    at HD3's five shapes against its plain version and its times; infer on
+    the card against the CPU; the CLI in both executions, with and without
+    flow finetuning; bench.py's oracle drive through one chunk; one update
+    on the card against the CPU; the times of infer, infer_chunk,
+    frame_step, chunk_step and the update."""
+    from dfvo_torch.ops.correlation import correlation_plain
+    from dfvo_torch.ops.pallas_corr import correlation_cuda
+    from dfvo_torch.pipeline.dfvo import frame_step
+    from dfvo_torch.pipeline.scan_runner import make_chunk_step
+    from dfvo_torch.pipeline.tracking import TRACK_MODE_ESSENTIAL
+    from dfvo_torch.utils import prng
+
+    shapes = hd3_corr_shapes((192, 640))
+    for n in HD3_BATCHES:
+        for l, (h, w, c) in shapes:
+            f1, f2 = chk.randn((n, h, w, c)), chk.randn((n, h, w, c))
+            chk.compare("correlation", f"HD3 L{l} D=4 {[n, h, w, c]}",
+                        lambda a, b: correlation_cuda(a, b, 4, 1),
+                        lambda a, b: correlation_plain(a, b, 4, 1), (f1, f2),
+                        expect=hd3_variant(c), record="correlation_d4")
+    rows, sums = [], {}
+    for per, n, dtype in (("infer_chunk", 64, torch.bfloat16), ("infer", 2, torch.bfloat16),
+                          ("update", 2, torch.float32)):
+        r, s = kernel_times(hd3_cases(chk, shapes, n, dtype), names=("correlation_d4",),
+                            per=f"HD3 {per} network call")
+        rows += r
+        sums[per] = s["correlation_d4"]
+    result = {"kernel_rows": rows, "kernel_sums": sums,
+              "infer_card_vs_cpu": hd3_infer_card_vs_cpu(seed)}
+
+    cli, vos = {}, {}
+    for name, execution, frames, finetune in (
+            ("frame", "frame", HD3_FRAMES, False), ("scan", "scan", HD3_SCAN_FRAMES, False),
+            ("frame_finetune", "frame", HD3_FT_PAIRS + 1, True),
+            ("scan_finetune", "scan", 1 + 32 + 1, True)):
+        r = hd3_cli(seed, name, execution, frames, finetune)
+        cli[name] = hd3_check_cli(r, execution, frames, finetune)
+        vos[name] = r["vo"]
+    result["cli"] = cli
+
+    # bench.py's oracle drive through one HD3 chunk: every frame by E
+    vo = vos["scan"]
+    fe, variables, tcfg = vo.frontend, vo.infer_variables, vo.tcfg
+    h, w = vo.cfg.image.height, vo.cfg.image.width
+    chunk = int(vo.cfg.tpu.scan_chunk)
+    K, frames, depths, flows, diffs, motions = oracle_chunk(h, w, chunk, seed)
+    dev = torch.device("cuda")
+    to = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    imgs = to(frames)
+    keys = to(prng.step_keys(seed, range(1, chunk + 1)).astype(np.int64))
+    oracle = {"depths": to(depths[1:]), "flow_fwd": to(flows), "flow_diff": to(diffs)}
+    eye = torch.eye(4, device=dev)
+    carry = (imgs[0], to(depths[0]), eye, np.float32(1.0))
+    step, _ = make_chunk_step(fe, tcfg)
+    Kd, Kid = to(K), to(np.linalg.inv(K).astype(np.float32))
+
+    def run_chunk():
+        return step(variables, imgs[1:], carry, keys, Kd, Kid, oracle=oracle)
+
+    counters = reset_launch_counts()
+    poses, modes, _ = run_chunk()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    d4 = counters["correlation"].disp_launches[4]
+    poses = poses.cpu().numpy().astype(np.float64)
+    errs = [(rot_deg(poses[i][:3, :3], T[:3, :3]),
+             float(np.linalg.norm(poses[i][:3, 3] - T[:3, 3]) / np.linalg.norm(T[:3, 3])))
+            for i, T in enumerate(motions)]
+    worst_rot, worst_t = max(e[0] for e in errs), max(e[1] for e in errs)
+    print(f"  oracle chunk of {chunk} with HD3: modes {modes.tolist()}; worst rotation "
+          f"{worst_rot:.3e} deg, translation {worst_t:.3e} of |t_gt| (bounds 0.1 deg, "
+          f"0.05 |t|); launches {launches}, {d4} at D = 4", flush=True)
+    if launches != HD3_PER_CALL or d4 != HD3_PER_CALL["correlation"] \
+            or not (modes == TRACK_MODE_ESSENTIAL).all() or worst_rot >= 0.1 or worst_t >= 0.05:
+        fail(f"hd3 oracle chunk: launches {launches} ({d4} at D = 4), modes {modes.tolist()}, "
+             f"rotation {worst_rot:.3e} deg, translation {worst_t:.3e} of |t|")
+    result["oracle_chunk"] = {"modes": modes.tolist(), "worst_rot_deg": worst_rot,
+                              "worst_t_of_t": worst_t, "d4_launches": d4}
+
+    # the times: infer, infer_chunk (33 frames), frame_step, chunk_step, update
+    fvo = vos["frame"]
+    fvars, img_ref = fvo.infer_variables, fvo.ref_data["img_dev"]
+    unit = img_ref.float() / 255.0
+    key = prng.fold_in(prng.PRNGKey(fvo.cfg.seed), HD3_FRAMES)
+    chunk_imgs = torch.from_numpy(make_frames(seed, chunk + 1, h, w)).cuda().float() / 255.0
+    tvo = vos["frame_finetune"]
+    pose = torch.eye(4, device=dev)
+    pose[2, 3] = 0.5
+    steps = {}
+    for name, fn, n_frames, want_syncs in (
+            ("infer", lambda: fe.infer(fvars, unit, unit), None, 0),
+            ("infer_chunk", lambda: fe.infer_chunk(fvars, chunk_imgs), chunk, 0),
+            ("frame_step", lambda: frame_step(fvo.frontend, fvo.tcfg, fvars, img_ref, img_ref,
+                                              fvo.ref_data["raw_depth_dev"], eye, key, fvo.K,
+                                              fvo.K_inv, 1.0), None, 1),
+            ("chunk_step", run_chunk, chunk, 1),
+            ("update", lambda: tvo.finetuner.update(tvo.variables, tvo.opt_state, unit, unit,
+                                                   pose), None, 0)):
+        counters = reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        d4 = counters["correlation"].disp_launches[4]
+        steps[name] = hd3_time(name, fn, out_dir, n_frames)
+        steps[name]["d4_launches_per_call"] = d4
+        if d4 != 5 or steps[name]["host_syncs"] != want_syncs:
+            fail(f"hd3 {name}: {d4} launches at D = 4, {steps[name]['host_syncs']} host syncs; "
+                 f"expected 5 and {want_syncs}")
+    result["steps"] = steps
+    # one HD3 flow update (scales 1-5) on the card against the CPU, held to
+    # the finetune phase's limits for the flow network
+    result["update_card_vs_cpu"] = ft_card_vs_cpu(seed, hd3_load_cfg("float32", finetune=True))
+    result["launches_d4"] = sum(cli[x]["d4_launches"] for x in ("frame", "scan"))
+    return result
+
+
+def hd3_summary(hd3, smi):
+    """The hd3 phase's numbers for its JSON line."""
+    return {"cli": {k: {kk: vv for kk, vv in v.items() if kk != "host_reads_by_line"}
+                    for k, v in hd3["cli"].items()},
+            "steps": hd3["steps"], "oracle_chunk": hd3["oracle_chunk"],
+            "infer_card_vs_cpu": hd3["infer_card_vs_cpu"],
+            "update_card_vs_cpu": hd3["update_card_vs_cpu"],
+            "correlation_d4": hd3["kernel_sums"], "nvidia_smi": smi}
+
+
 def ext_summary(extend, smi):
     """The extend phase's numbers for its JSON line."""
     return {
@@ -2821,6 +3200,7 @@ def main():
     scan = scan_phase(SEED, out_dir)
     finetune = finetune_phase(chk, SEED, out_dir)
     extend = extend_phase(chk, SEED, out_dir)
+    hd3 = hd3_phase(chk, SEED, out_dir)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -2847,6 +3227,23 @@ def main():
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")}}
         for name, (src, rep) in sources.items()
     ]
+    # HD3's use of the cost volume (D = 4, 81 channels): times, bound and
+    # plain version per infer_chunk network call (N = 64 bf16), launches over
+    # the hd3 phase's two inference CLI runs
+    d4 = hd3["kernel_sums"]
+    kernels.append({
+        "name": "correlation_d4", "route": "cuda", "source": "dfvo_torch/csrc/correlation.cu",
+        "replaces": "dfvo_tpu/ops/pallas_corr.py:30 (HD3, dfvo_tpu/models/hd3.py:484)",
+        "variant": "tensor_core (C <= 256), cuda_core (C = 512)",
+        "launches": hd3["launches_d4"],
+        "launches_per_frame": hd3["steps"]["frame_step"]["d4_launches_per_call"],
+        "launches_per_chunk": hd3["steps"]["chunk_step"]["d4_launches_per_call"],
+        "launches_per_update": hd3["steps"]["update"]["d4_launches_per_call"],
+        "launches_per_call": d4["infer_chunk"]["launches_per_call"],
+        "max_abs_err": chk.max_abs_err["correlation_d4"],
+        **{k: d4["infer_chunk"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms")},
+        "per_infer_n2": d4["infer"], "per_update_f32": d4["update"]})
     report = {
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "infer_ms_per_frame": infer_ms, "infer_chunk_ms_per_frame": chunk_ms,
@@ -2855,7 +3252,7 @@ def main():
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
         "tracking": tracking, "run": run, "scan": scan, "finetune": finetune,
-        "extend": extend, "lost_traces": LOST_TRACES,
+        "extend": extend, "hd3": hd3, "lost_traces": LOST_TRACES,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
@@ -2894,6 +3291,7 @@ def main():
             "scan": scan["ms_per_tracked_frame"]["DF-VO"]},
         "nvidia_smi": smi}}))
     print(json.dumps({"extend": ext_summary(extend, smi)}))
+    print(json.dumps({"hd3": hd3_summary(hd3, smi)}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,11 @@ correlation, go back to ``ConvTranspose2d(C, C, 4, 2, 1, groups=C)`` form;
 batch-norm ``params`` and ``batch_stats`` both carry over. The bridge lets
 the two packages compute from the same weights.
 
+``hd3_from_flax`` maps the JAX package's HD3 tree by name: the port's
+modules carry the reference torch network's names, whose Sequential
+indices the Flax names merge into ``_i`` suffixes; ``hd3_checkpoint``
+reads the model zoo's HD3 checkpoint into those names.
+
 ``init_state_dict`` draws a module's parameters from a ``torch.Generator``
 with the JAX package's initialisers (lecun-normal convs, normal(0.02)
 deconvs, zero biases, identity batch norm), for runs without checkpoints.
@@ -157,6 +162,93 @@ def liteflownet_from_flax(variables):
         _conv(sd, f"{key}.moduleScaleX", r["scale_x"])
         _conv(sd, f"{key}.moduleScaleY", r["scale_y"])
     return sd
+
+
+def _merge_path(key):
+    """A torch module path -> the Flax path components: Sequential indices
+    merge into the parent name (``base_layer.0`` -> ``base_layer_0``)."""
+    parts = []
+    for comp in key.split("."):
+        if comp.isdigit() and parts:
+            parts[-1] = f"{parts[-1]}_{comp}"
+        else:
+            parts.append(comp)
+    return parts
+
+
+def _hd3_config(params):
+    """The ``HD3Net`` options that built a Flax HD3 ``params`` tree."""
+    levels = sum(1 for k in params if k.startswith("Decoder_"))
+    last = params[f"Decoder_{levels - 1}"]
+    context = "dc_conv_0_0" in last
+    classes = []
+    for l in range(levels):
+        dec = params[f"Decoder_{l}"]
+        classes.append(int(np.shape(dec["cls_2" if "cls_2" in dec else "cls"]["kernel"])[-1]))
+    # the flow cost volume keeps all 81 channels, the stereo one a row of it
+    task = "flow" if np.shape(params["cost_bn_0"]["scale"])[0] == 81 else "stereo"
+    if task == "flow":
+        corr_range = tuple(int(round(math.sqrt(c))) // 2 for c in classes)
+    else:
+        corr_range = tuple(c // 2 for c in classes)
+    return dict(task=task, encoder="vgg" if "block_0_conv1" in params["encoder"] else "dlaup",
+                decoder="hda" if "root_0" in params["Decoder_0"]["mapping"] else "resnet",
+                corr_range=corr_range, context=context)
+
+
+def hd3_from_flax(variables):
+    """Flax ``HD3Net`` variables (any task, encoder, decoder and context)
+    -> ``models.hd3.HD3Net`` state dict. Conv kernels go HWIO -> OIHW; the
+    transposed convolutions, which the JAX package stores flipped as
+    dilated correlations, go back to ``ConvTranspose2d`` form (depthwise
+    ``up_i``: (k, k, 1, C) -> (C, 1, k, k); ``Decoder_l.up.2``: (k, k, Cin,
+    Cout) -> (Cin, Cout, k, k))."""
+    from .hd3 import HD3Net
+
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    net = HD3Net(**_hd3_config(params), device=torch.device("meta"))
+    bn = {name for name, m in net.named_modules() if isinstance(m, FrozenBatchNorm)}
+    deconv = {name for name, m in net.named_modules() if isinstance(m, nn.ConvTranspose2d)}
+
+    def leaf(tree, path, name):
+        for comp in path:
+            tree = tree[comp]
+        return np.asarray(tree[name])
+
+    sd = {}
+    for key in net.state_dict():
+        mod, name = key.rsplit(".", 1)
+        path = _merge_path(mod)
+        if mod in bn:
+            src = {"weight": (params, "scale"), "bias": (params, "bias"),
+                   "running_mean": (stats, "mean"), "running_var": (stats, "var")}[name]
+            sd[key] = _t(leaf(src[0], path, src[1]))
+        elif name == "bias":
+            sd[key] = _t(leaf(params, path, "bias"))
+        elif mod in deconv:
+            k = leaf(params, path, "kernel")[::-1, ::-1]
+            grouped = net.get_submodule(mod).groups > 1
+            sd[key] = _t(k.transpose(3, 2, 0, 1) if grouped else k.transpose(2, 3, 0, 1))
+        else:
+            sd[key] = conv_from_flax(leaf(params, path, "kernel"))
+    return sd
+
+
+def load_checkpoint(path):
+    """A torch checkpoint's tensors (a state dict, or a dict holding one
+    under ``state_dict``) as float32 CPU tensors, the ``module.`` prefix of
+    a data-parallel save dropped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    return {k.removeprefix("module."): v.float() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def hd3_checkpoint(path):
+    """The model zoo's HD3 checkpoint under ``models.hd3.HD3Net``'s names:
+    ``load_checkpoint`` with the ``hd3net.`` prefix of the reference's
+    HD3Model wrapper dropped too (the JAX package's ``convert_hd3``)."""
+    return {k.removeprefix("hd3net."): v for k, v in load_checkpoint(path).items()}
 
 
 def init_state_dict(module, generator):

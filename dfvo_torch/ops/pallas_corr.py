@@ -92,8 +92,11 @@ def correlation_cuda(f1, f2, max_disp=3, stride=1):
     cuda_lib.check(rc, f"correlation ({variant})")
     correlation_cuda.launches += 1
     correlation_cuda.variant_launches[variant] += 1
+    correlation_cuda.disp_launches[max_disp] += 1
     return out
 
 
 correlation_cuda.launches = 0
 correlation_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
+# by window: D = 3 (LiteFlowNet, 49 channels) and D = 4 (HD3, 81 channels)
+correlation_cuda.disp_launches = {3: 0, 4: 0}

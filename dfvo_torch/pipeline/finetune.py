@@ -131,8 +131,10 @@ class OnlineFinetuner:
     # -- loss pieces --------------------------------------------------------
     def flow_loss(self, flow_vars, img_ref, img_cur):
         """The flow loss over the configured scales, for [1 x H x W x 3]
-        images: LiteFlowNet on the forward and backward pair as one batch
-        of two."""
+        images: the flow network on the forward and backward pair as one
+        batch of two. LiteFlowNet gives a flow per scale; HD3 gives its one
+        final-level flow under every scale, so for HD3 only the 1/2^s
+        weights differ between the scales."""
         h, w = self.frontend.h, self.frontend.w
         img1 = torch.cat([img_ref, img_cur], dim=0)
         img2 = torch.cat([img_cur, img_ref], dim=0)

@@ -39,10 +39,13 @@ def draw_match_temporal(img1, kp1, img2, kp2, n):
 
 def draw_match_side(img1, kp1, img2, kp2, n, inliers=None):
     """Side-by-side matches (cv2.drawMatches); with an inlier mask,
-    inliers green and outliers red blended 50/50."""
+    inliers green and outliers red blended 50/50. Without keypoints (a
+    frame whose flow passes no consistency check) the two images alone;
+    the JAX package's drawer raises an IndexError there."""
     img1 = np.ascontiguousarray(img1[..., ::-1])
     img2 = np.ascontiguousarray(img2[..., ::-1])
-    kp_list = np.linspace(0, max(min(len(kp1), len(kp2)) - 1, 0), n, dtype=int)
+    n_kp = min(len(kp1), len(kp2))
+    kp_list = np.linspace(0, n_kp - 1, n, dtype=int) if n_kp else np.zeros(0, int)
     cv_kp1 = [cv2.KeyPoint(float(pt[0]), float(pt[1]), 1.0) for pt in kp1[kp_list]]
     cv_kp2 = [cv2.KeyPoint(float(pt[0]), float(pt[1]), 1.0) for pt in kp2[kp_list]]
     matches = [

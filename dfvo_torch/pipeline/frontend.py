@@ -10,6 +10,14 @@ finetuning applies the networks with autograd through ``flow_apply`` and
 ``depth_apply``. With ``deep_pose.enable`` the pose CNN runs in ``infer``
 on the pair (ref, cur) stacked on the channels.
 
+The flow network is LiteFlowNet (``deep_flow.network: liteflow``, fed at
+multiples of 32) or HD3 (``hd3``: ``HD3Net`` with the DLA-34 encoder and
+HDA decoders, fed at multiples of 64). HD3's flow is its final level's
+vector times 1/2^(7 - levels), at a quarter of the feed size, in that
+size's pixels. In a chunk HD3 runs on the 2(M-1) forward and backward
+pairs as two batches (``[0..M-2, 1..M-1]`` against ``[1..M-1, 0..M-2]``),
+each image encoded once per pair it is in, as the JAX package computes it.
+
 The depth network's skip connections need a height and width that are
 multiples of 32. At any other size (the extended paper's 370x1226) the
 JAX package's depth network fails. There the port feeds it at the flow
@@ -26,8 +34,8 @@ import os
 import torch
 from torch.func import functional_call
 
-from ..models import LiteFlowNet, Monodepth2Depth, Monodepth2Pose
-from ..models.convert import init_state_dict
+from ..models import HD3Net, LiteFlowNet, Monodepth2Depth, Monodepth2Pose
+from ..models.convert import hd3_checkpoint, init_state_dict, load_checkpoint
 from ..models.layers import resize_bilinear
 from ..ops.warp import flow_to_coords, grid_sample
 
@@ -76,15 +84,6 @@ def resize_dense_flow(flow, out_h, out_w):
     return _scale_xy(resized, out_w / w, out_h / h)
 
 
-def _load_checkpoint(path):
-    """A torch checkpoint's tensors as float32 CPU tensors ("module."
-    prefixes of data-parallel saves dropped)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = sd.get("state_dict", sd)
-    return {k.removeprefix("module."): v.float() for k, v in sd.items()
-            if isinstance(v, torch.Tensor)}
-
-
 def _match_template(sd, template, source):
     """The checkpoint's entries for every key of ``template``, shapes
     checked; entries the port's modules do not have (the encoder's
@@ -119,17 +118,17 @@ class DeepFrontend:
             depth_kw = dict(min_depth=0.1, max_depth=100.0, baseline_multiplier=5.4)
         self.depth_kw = depth_kw
         self.flow_kind = cfg.deep_flow.network
-        if self.flow_kind == "hd3":
-            raise NotImplementedError(
-                "deep_flow.network: hd3 is not ported yet "
-                "(ROADMAP queue 1, item 'HD3')"
-            )
-        if self.flow_kind != "liteflow":
-            raise ValueError(f"unknown flow network: {self.flow_kind}")
         meta = torch.device("meta")
+        if self.flow_kind == "liteflow":
+            self.flow_net = LiteFlowNet(device=meta)
+            self.flow_feed = flow_target_size(self.h, self.w, 32)
+        elif self.flow_kind == "hd3":
+            self.flow_net = HD3Net(task="flow", encoder="dlaup", decoder="hda",
+                                   corr_range=(4, 4, 4, 4, 4), context=False, device=meta)
+            self.flow_feed = flow_target_size(self.h, self.w, 64)
+        else:
+            raise ValueError(f"unknown flow network: {self.flow_kind}")
         self.depth_net = Monodepth2Depth(**depth_kw, device=meta)
-        self.flow_net = LiteFlowNet(device=meta)
-        self.flow_feed = flow_target_size(self.h, self.w, 32)
         self.depth_feed = (self.h, self.w)
         if self.h % 32 or self.w % 32:
             self.depth_feed = flow_target_size(self.h, self.w, 32)
@@ -156,33 +155,34 @@ class DeepFrontend:
         replaced by its checkpoint where the configured path holds one.
 
         Monodepth2 comes as the model zoo's ``encoder.pth`` and
-        ``depth.pth`` in ``depth.deep_depth.pretrained_model``, LiteFlowNet
-        as ``deep_flow.flow_net_weight``, and the pose CNN (with
-        ``deep_pose.enable``) as ``pose_encoder.pth`` and ``pose.pth`` in
-        ``deep_pose.pretrained_model``; all load straight into the
-        modules' parameter names.
+        ``depth.pth`` in ``depth.deep_depth.pretrained_model``, the flow
+        network as ``deep_flow.flow_net_weight`` (HD3's with its
+        ``module.`` and ``hd3net.`` prefixes dropped), and the pose CNN
+        (with ``deep_pose.enable``) as ``pose_encoder.pth`` and
+        ``pose.pth`` in ``deep_pose.pretrained_model``; all load straight
+        into the modules' parameter names.
         """
         variables = self.init_variables(generator)
         depth_dir = str(self.cfg.depth.deep_depth.pretrained_model or "")
         enc = os.path.join(depth_dir, "encoder.pth")
         dec = os.path.join(depth_dir, "depth.pth")
         if os.path.isfile(enc) and os.path.isfile(dec):
-            sd = {"encoder." + k: v for k, v in _load_checkpoint(enc).items()}
-            sd.update({"decoder." + k: v for k, v in _load_checkpoint(dec).items()})
+            sd = {"encoder." + k: v for k, v in load_checkpoint(enc).items()}
+            sd.update({"decoder." + k: v for k, v in load_checkpoint(dec).items()})
             variables["depth"] = _match_template(sd, variables["depth"], depth_dir)
             print(f"==> Initialize Depth-CNN with [{depth_dir}]")
         flow_path = str(self.cfg.deep_flow.flow_net_weight or "")
         if os.path.isfile(flow_path):
-            variables["flow"] = _match_template(_load_checkpoint(flow_path),
-                                                variables["flow"], flow_path)
+            read = hd3_checkpoint if self.flow_kind == "hd3" else load_checkpoint
+            variables["flow"] = _match_template(read(flow_path), variables["flow"], flow_path)
             print(f"==> Initialize {self.flow_kind} flow net with [{flow_path}]")
         if self.use_pose_net:
             pose_dir = str(self.cfg.deep_pose.pretrained_model or "")
             enc = os.path.join(pose_dir, "pose_encoder.pth")
             dec = os.path.join(pose_dir, "pose.pth")
             if os.path.isfile(enc) and os.path.isfile(dec):
-                sd = {"encoder." + k: v for k, v in _load_checkpoint(enc).items()}
-                sd.update({"decoder." + k: v for k, v in _load_checkpoint(dec).items()})
+                sd = {"encoder." + k: v for k, v in load_checkpoint(enc).items()}
+                sd.update({"decoder." + k: v for k, v in load_checkpoint(dec).items()})
                 variables["pose"] = _match_template(sd, variables["pose"], pose_dir)
                 print(f"==> Initialize Pose-CNN with [{pose_dir}]")
         return variables
@@ -213,11 +213,22 @@ class DeepFrontend:
         }
 
     def flow_apply(self, flow_vars, img1, img2):
-        """LiteFlowNet on two independent [N x H x W x 3] batches
-        (``pair_mode="two"``), with autograd: {1..5} flows in float32."""
+        """The flow network on two independent [N x H x W x 3] batches, with
+        autograd: {1..5} flows in float32. LiteFlowNet's (``pair_mode=
+        "two"``) are its pyramid; HD3 gives its one flow under every key,
+        as the reference's HD3 does for the finetuning scales."""
+        if self.flow_kind == "hd3":
+            flow = self._hd3(flow_vars, img1, img2)
+            return {s: flow for s in range(1, 6)}
         flows = functional_call(self.flow_net, flow_vars, (img1, img2), {"pair_mode": "two"},
                                 strict=True)
         return {s: f.float() for s, f in flows.items()}
+
+    def _hd3(self, flow_vars, img1, img2):
+        """HD3's flow: the final level's vector x 1/2^(7 - levels), in
+        float32."""
+        _, ms_vect = functional_call(self.flow_net, flow_vars, (img1, img2), strict=True)
+        return ms_vect[-1].float() * (1.0 / 2 ** (7 - len(ms_vect)))
 
     def depth_apply(self, depth_vars, imgs):
         """Monodepth2 on [N x H x W x 3] images, with autograd: the
@@ -246,6 +257,10 @@ class DeepFrontend:
         return out["depth"].float()
 
     def _flow(self, variables, img1, img2, pair_mode):
+        """LiteFlowNet's finest flow in ``pair_mode``, or HD3's flow of the
+        pairs (img1[i], img2[i])."""
+        if self.flow_kind == "hd3":
+            return self._hd3(variables["flow"], img1, img2)
         flows = functional_call(self.flow_net, variables["flow"],
                                 (img1, img2), {"pair_mode": pair_mode},
                                 strict=True)
@@ -267,7 +282,8 @@ class DeepFrontend:
     @torch.no_grad()
     def infer_chunk(self, variables, all_imgs):
         """Network inference for a whole frame chunk in one batch
-        (LiteFlowNet ``consecutive`` mode).
+        (LiteFlowNet ``consecutive`` mode; HD3 on the forward and backward
+        pairs).
 
         Args:
             variables: prepared network variables.
@@ -287,7 +303,11 @@ class DeepFrontend:
         feed = imgs_net
         if (th, tw) != (self.h, self.w):
             feed = resize_bilinear(imgs_net, th, tw, align_corners=True)
-        flow_feed_res = self._flow(variables, feed, feed, "consecutive")
+        if self.flow_kind == "hd3":
+            flow_feed_res = self._flow(variables, torch.cat([feed[:-1], feed[1:]]),
+                                       torch.cat([feed[1:], feed[:-1]]), None)
+        else:
+            flow_feed_res = self._flow(variables, feed, feed, "consecutive")
 
         f_fwd_n = flow_feed_res[: m - 1]
         f_bwd_n = flow_feed_res[m - 1 :]
@@ -322,7 +342,7 @@ class DeepFrontend:
             depth_cur = depth_cur.float()
 
         # batched forward+backward; img2 is img1 with the batch flipped, so
-        # LiteFlowNet shares the feature pass
+        # LiteFlowNet shares the feature pass (HD3 encodes all four)
         img1 = torch.cat([img_ref, img_cur], dim=0)
         img2 = torch.cat([img_cur, img_ref], dim=0)
         th, tw = self.flow_feed

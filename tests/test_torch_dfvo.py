@@ -80,6 +80,52 @@ def _frame_cfg(loader, root, result_dir):
     return cfg
 
 
+_JAX_INFER = {}
+
+
+def jax_infer(frontend):
+    """``jax.jit(frontend.infer)``, one per frontend configuration
+    (``static_key``) in a process, so the tests that one pytest worker runs
+    trace it once (the JAX ``DFVO`` shares its step functions the same
+    way)."""
+    key = frontend.static_key()
+    if key not in _JAX_INFER:
+        _JAX_INFER[key] = jax.jit(frontend.infer)
+    return _JAX_INFER[key]
+
+
+def split_jax_step(jvo):
+    """Run the JAX loop's fused frame step (``DFVO._full_step``: ``infer``,
+    then ``tracking_step``, as one jitted program) as its two jitted
+    halves, each a program that the JAX suite compiles too (the persistent
+    compilation cache then holds it): ``jax.jit(frontend.infer)`` is
+    tests/test_infer_chunk.py's, and ``tracking_step`` with the rigid-flow
+    map on (the drawer's map, an extra output that changes nothing else) is
+    tests/test_scan_runner.py's at 64x96. The same computation, without
+    XLA's fusion across the boundary."""
+    import dataclasses
+
+    from dfvo_tpu.pipeline.tracking import tracking_step
+
+    assert jvo.tracking_method != "deep_pose" and not jvo.use_gt_depth
+    infer = jax_infer(jvo.frontend)
+    tcfg = dataclasses.replace(jvo.tcfg, want_rigid_flow_diff=True)
+
+    def full_step(variables, img_cur_u8, img_ref_u8, depth_ref_raw, prev_motion, rng, K,
+                  K_inv, prev_scale, gt_depth_cur=None):
+        fo = infer(variables, jnp.asarray(img_cur_u8).astype(jnp.float32) / 255.0,
+                   jnp.asarray(img_ref_u8).astype(jnp.float32) / 255.0)
+        tr = tracking_step(rng, fo["flow_fwd"], fo["flow_diff"], fo["depth_cur"],
+                           depth_ref_raw, prev_motion, K, K_inv, tcfg, prev_scale=prev_scale)
+        return {**{k: tr[k] for k in ("pose", "mode", "scale", "kp_ref", "kp_cur", "kp_valid",
+                                      "inliers", "rigid_flow_diff", "depth_cur")},
+                "depth_cur_raw": fo["depth_cur"], "flow_fwd": fo["flow_fwd"],
+                "flow_bwd": fo["flow_bwd"], "flow_diff": fo["flow_diff"]}
+
+    jvo._full_step = full_step
+    return jvo
+
+
 def _record_frames(vo):
     """Wrap ``vo.run_frame`` to collect each tracked frame's mode, scale,
     valid keypoints and inliers (host reads the loops themselves skip with
@@ -109,7 +155,7 @@ def test_dfvo_main_matches_jax(tiny_kitti, tmp_path, monkeypatch):
     # minute on the CPU); hand it the converted variables instead
     monkeypatch.setattr(JDeepFrontend, "init_variables",
                         lambda self, rng: jax.tree.map(jnp.asarray, jvars))
-    jvo = JDFVO(_frame_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax"))
+    jvo = split_jax_step(JDFVO(_frame_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax")))
     j_frames = _record_frames(jvo)
     jvo.main()
 

@@ -54,7 +54,8 @@ from dfvo_tpu.ops.regfilter import reg_scale_filter
 from dfvo_tpu.pipeline import DFVO as JDFVO
 from dfvo_tpu.pipeline.frontend import DeepFrontend as JDeepFrontend
 from dfvo_tpu.utils import ConfigLoader
-from tests.test_torch_dfvo import N_FRAMES, _frame_cfg, tiny_kitti  # noqa: F401 (fixture)
+from tests.test_torch_dfvo import (N_FRAMES, _frame_cfg, split_jax_step,  # noqa: F401
+                                   tiny_kitti)
 from tests.test_torch_models import _perturb, seeded_flax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -505,11 +506,13 @@ def test_update_and_frame_loop_match_jax(tiny_kitti, tmp_path, monkeypatch):
     pairs, in both packages' ``DFVO.main``: the first update (its loss,
     gradients, weights and moments; ``_check_update``), the trajectory, the
     finetuned weights, and the finetuned model on disk. One JAX program
-    (the jitted ``update``) serves every comparison."""
+    (the jitted ``update``) serves every comparison; the JAX loop's frame
+    step runs as its two jitted halves (tests/test_torch_dfvo.py
+    ``split_jax_step``)."""
     jvars = _jax_variables()
     monkeypatch.setattr(JDeepFrontend, "init_variables",
                         lambda self, rng: jax.tree.map(jnp.asarray, jvars))
-    jvo = JDFVO(_ft_cfg(_frame_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax")))
+    jvo = split_jax_step(JDFVO(_ft_cfg(_frame_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax"))))
     calls, j_update = [], jvo.finetuner.update
 
     def update(variables, opt_state, img_ref, img_cur, pose):
@@ -632,11 +635,12 @@ def test_finetuner_refuses_pose_sources_it_cannot_serve(pose_src, error, match):
 
 
 def test_hd3_finetuning_and_the_multi_sequence_step_name_their_items(tiny_kitti, tmp_path):
+    """HD3 flow finetuning builds (tests/test_torch_hd3_pipeline.py runs it);
+    the multi-sequence step still names its ROADMAP item."""
     cfg = _ft_cfg(_frame_cfg(TConfigLoader, tiny_kitti, tmp_path))
     cfg.deep_flow.network = "hd3"
-    with pytest.raises(NotImplementedError, match="HD3"):
-        TDFVO(cfg, device="cpu")
-    ft, _, _ = _port_finetuner()
+    ft = TFinetuner(TDeepFrontend(cfg, "cpu"), cfg)
+    assert ft.frontend.flow_kind == "hd3" and ft.train_flow
     with pytest.raises(NotImplementedError, match="item 11"):
         ft.make_update_fn(axis_name="seq")
 

@@ -22,6 +22,7 @@ from dfvo_torch.utils import ConfigLoader as TConfigLoader
 from dfvo_tpu.matching import kp_selection as J_kp
 from dfvo_tpu.pipeline.frontend import DeepFrontend, flow_target_size
 from dfvo_tpu.utils import ConfigLoader
+from tests.test_torch_dfvo import jax_infer
 from tests.test_torch_models import seeded_flax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,7 +67,7 @@ def _assert_outputs_close(got, want, depth_key):
 
 def test_infer_matches_jax(slice_pair):
     jfe, jvars, tfe, tvars, imgs = slice_pair
-    want = jax.jit(jfe.infer)(jvars, jnp.asarray(imgs[1]), jnp.asarray(imgs[0]))
+    want = jax_infer(jfe)(jvars, jnp.asarray(imgs[1]), jnp.asarray(imgs[0]))
     got = tfe.infer(tvars, torch.from_numpy(imgs[1]), torch.from_numpy(imgs[0]))
     assert {k: tuple(v.shape) for k, v in got.items()} == {
         "depth_cur": (64, 96), "flow_fwd": (64, 96, 2),
@@ -98,10 +99,16 @@ def test_infer_chunk_matches_jax(slice_pair):
 
 
 def test_frontend_refuses_unported_options():
+    """A flow network that neither package has is refused with the JAX
+    package's ValueError (HD3 and LiteFlowNet are both ported)."""
     cfg = _cfg(TConfigLoader)
-    cfg.deep_flow.network = "hd3"
-    with pytest.raises(NotImplementedError, match="HD3"):
+    cfg.deep_flow.network = "pwcnet"
+    with pytest.raises(ValueError, match="unknown flow network: pwcnet"):
         TDeepFrontend(cfg, "cpu")
+    jcfg = _cfg(ConfigLoader)
+    jcfg.deep_flow.network = "pwcnet"
+    with pytest.raises(ValueError, match="unknown flow network: pwcnet"):
+        DeepFrontend(jcfg)
 
 
 def test_prepare_variables_follows_config_dtype():
@@ -212,7 +219,7 @@ def test_frame_steps_match_jax(slice_pair):
     jt, tt = J_tr.TrackingConfig.from_cfg(jcfg), T_tr.TrackingConfig.from_cfg(tcfg)
     K = np.array([[55.0, 0, 48.0], [0, 123.0, 32.0], [0, 0, 1.0]], np.float32)
     K_inv = np.linalg.inv(K).astype(np.float32)
-    jinfer = jax.jit(jfe.infer)
+    jinfer = jax_infer(jfe)
 
     def unit(i):
         return jnp.asarray(frames[i]).astype(jnp.float32) / 255.0

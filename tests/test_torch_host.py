@@ -289,6 +289,48 @@ class _FakeVO:
         self.tracking_mode = "PnP"
 
 
+def test_drawer_draws_a_frame_without_keypoints(layouts, tmp_path):
+    """A frame whose flow passes no forward-backward check (HD3 with seeded
+    weights at 192x640 on the card) has no valid keypoint: the port's
+    drawer shows the two images side by side without matches, where the
+    JAX package's ``draw_match_side`` raises an IndexError."""
+    from dfvo_torch.geometry.camera import SE3
+    from dfvo_torch.pipeline.frame_drawer import FrameDrawer as TDrawer
+    from dfvo_torch.pipeline.frame_drawer import draw_match_side
+    from dfvo_tpu.pipeline.frame_drawer import draw_match_side as j_draw_match_side
+
+    rng = np.random.RandomState(8)
+    h, w, n = 64, 96, 50
+    frames = (rng.rand(2, h, w, 3) * 255).astype(np.uint8)
+    none = np.zeros((0, 2), np.float32)
+    for inliers in (None, np.zeros(0, bool)):
+        side = draw_match_side(frames[0], none, frames[1], none, 200, inliers)
+        np.testing.assert_array_equal(side, np.hstack([frames[0][..., ::-1],
+                                                       frames[1][..., ::-1]]))
+    with pytest.raises(IndexError):
+        j_draw_match_side(frames[0], none, frames[1], none, 200)
+
+    cfg = _cfg(TConfigLoader, layouts)
+    cfg.visualization.enable = True
+    cfg.visualization.kp_match.vis_side.inlier_plot = True
+    cfg.directory.result_dir = str(tmp_path)
+    drawer = TDrawer(cfg)
+    vo = _FakeVO(cfg, {})
+    vo.ref_data["img"], vo.global_poses[1] = frames[0], SE3(np.eye(4))
+    vo.cur_data.update(id=1, img=frames[1])
+    out = {"kp_ref": (rng.rand(n, 2) * [w, h]).astype(np.float32),
+           "kp_cur": (rng.rand(n, 2) * [w, h]).astype(np.float32),
+           "kp_valid": np.zeros(n, bool), "inliers": np.zeros(n, bool),
+           "depth_cur": rng.uniform(0.0, 40.0, (h, w)).astype(np.float32),
+           "flow_fwd": rng.randn(h, w, 2).astype(np.float32),
+           "flow_bwd": rng.randn(h, w, 2).astype(np.float32),
+           "flow_diff": rng.rand(h, w).astype(np.float32) + 1.0,
+           "rigid_flow_diff": rng.rand(h, w).astype(np.float32),
+           "mode": np.asarray(0)}
+    drawer.draw_frame(vo, out)
+    assert drawer.img is not None and (tmp_path / "img" / "000001.jpg").is_file()
+
+
 def test_drawer_pixels_match_jax(layouts, tmp_path):
     from dfvo_torch.geometry.camera import SE3
     from dfvo_torch.pipeline.frame_drawer import FrameDrawer as TDrawer

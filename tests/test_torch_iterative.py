@@ -35,7 +35,8 @@ from dfvo_torch.utils.io import load_poses_from_txt
 from dfvo_tpu.pipeline import DFVO as JDFVO
 from dfvo_tpu.pipeline.frontend import DeepFrontend as JDeepFrontend
 from dfvo_tpu.utils import ConfigLoader
-from tests.test_torch_dfvo import DEFAULT_CFG, N_FRAMES, REPO, _frame_cfg, tiny_kitti  # noqa: F401
+from tests.test_torch_dfvo import (DEFAULT_CFG, N_FRAMES, REPO, _frame_cfg,  # noqa: F401
+                                   split_jax_step, tiny_kitti)
 from tests.test_torch_models import _perturb, seeded_flax_variables
 
 H, W = 64, 96
@@ -60,14 +61,16 @@ def _iterative_cfg(loader, root, result_dir, execution="frame"):
 def test_dfvo_main_iterative_matches_jax(tiny_kitti, tmp_path, monkeypatch):  # noqa: F811
     """ablation_scale_iterative.yml through both packages' DFVO.main in
     frame execution, on the weights of test_dfvo_main_matches_jax: every
-    pose within 1e-5 (float32 steps chained over 7 frames)."""
+    pose within 1e-5 (float32 steps chained over 7 frames). The JAX loop's
+    frame step runs as its two jitted halves (tests/test_torch_dfvo.py
+    ``split_jax_step``)."""
     jvars = seeded_flax_variables(0)
     jvars["flow"] = _perturb(jvars["flow"], np.random.RandomState(0), head_scale=10.0)
     monkeypatch.setattr(JDeepFrontend, "init_variables",
                         lambda self, rng: jax.tree.map(jnp.asarray, jvars))
     jcfg = _iterative_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax")
     assert jcfg.scale_recovery.method == "iterative"
-    JDFVO(jcfg).main()
+    split_jax_step(JDFVO(jcfg)).main()
 
     tvo = TDFVO(_iterative_cfg(TConfigLoader, tiny_kitti, tmp_path / "torch"), device="cpu")
     assert tvo.tcfg.scale_method == "iterative"
