@@ -63,8 +63,8 @@ seconds, none caught:
    and inliers, each frame's relative pose within 0.01 deg and F32_T_REL
    of its translation, two host reads per tracked frame.
 12. scan: the CLI again with `tpu.execution: scan` (chunks of 32, bf16,
-   drawer on) over SCAN_FRAMES frames, two full chunks and a padded
-   third: SCAN_FRAMES finite poses starting at the GT's first pose,
+   drawer on) over SCAN_FRAMES frames, a full chunk and a padded
+   second: SCAN_FRAMES finite poses starting at the GT's first pose,
    eval_seq, the map, 5 / 5 / 14 launches per chunk (all Hopper
    variants) and 4 on the first frame, and SCAN_HOST_READS host reads per
    chunk by source line (none on the first frame). Then one chunk_step on
@@ -134,17 +134,37 @@ seconds, none caught:
    infer, infer_chunk, frame_step, chunk_step and one update; one update
    (float32, scales 1-5) on the card against the CPU.
 
+16. multiseq: the multi-sequence CLI, ``python -m dfvo_torch.apis.run_multiseq``'s
+   ``main``, over 11 synthetic KITTI-layout sequences named 00-10 (each with
+   its KITTI sequence's left camera) at the default YAML's 192x640 bf16: in
+   frame execution over MS_FRAMES frames (batched steps over the 11
+   sequences: the cost volume, the filter and the flow heads at N = 22, the
+   disparity heads at N = 11) and in scan execution over MS_SCAN_FRAMES
+   frames (a full chunk of 32 and a padded one, each sequence's chunk
+   step): finite trajectories, eval_seq, launches by batch size and
+   variant, host reads per step by source line (2 per frame step; 12 per
+   chunk), the timers; the batched step in float32 over 4 sequences on the
+   card against the CPU; one sequence-averaged update over 4 pairs in
+   float32 (TF32 off) against the CPU's loss and gradient, and
+   make_train_step's launches at N = 8; CUDA-event ms, per sequence-frame,
+   kernels, busy share, host syncs and peak memory of the batched VO step
+   and the chunk step over the 11 sequences, beside the single-sequence
+   frame_step. The run phase also saves a float32 run after frame 5,
+   loads it into a fresh DFVO and continues it, against the straight run.
+
 Weights and inputs are drawn from SEED.
 
 It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
 finetuning, a JSON line of the extend phase, a JSON line of the hd3 phase,
-a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
+a JSON line of the multiseq phase, a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
 own, correlation_d4; launches from the slice phase, from the CLI run as launches_cli, from the
 scan execution as launches_scan, from the finetuning updates of both CLI
 runs as launches_finetune and from the extend phase's two CLI runs as
-launches_extend; their times at 370x1226 as at_370x1226),
+launches_extend, from the multiseq phase's two CLI runs and its update by
+batch size as launches_multiseq and launches_multiseq_update; their times at
+370x1226 as at_370x1226),
 the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result, when no CUDA device is available
 or any phase fails.
@@ -205,6 +225,9 @@ PARITY_FRAMES = 4
 # the float32 loop's card-vs-CPU translation limit per frame, relative to
 # the estimate (run phase)
 F32_T_REL = 2e-2
+# the resume check (run phase): a float32 run saved after frame RESUME_AT
+# and continued in a fresh DFVO against the straight run of RESUME_FRAMES
+RESUME_FRAMES, RESUME_AT, RESUME_TOL = 8, 5, 1e-5
 RUN_SEQ = "09"
 # KITTI odometry sequence 00's left camera (calib.txt P2), 1241x376 frames
 RUN_CALIB = "718.856 0.0 607.1928 45.38225 0.0 718.856 185.2157 -0.1130887 0.0 0.0 1.0 0.003779761"
@@ -212,8 +235,8 @@ RUN_SIZE = (376, 1241)
 # host reads per tracked frame: the PnP decision and the pose, plus one
 # batched download for the drawer
 RUN_HOST_READS = {False: 2, True: 3}
-# the scan execution's sequence: two full chunks of 32 and a padded third
-SCAN_FRAMES = 1 + 32 + 32 + 9
+# the scan execution's sequence: a full chunk of 32 and a padded second
+SCAN_FRAMES = 1 + 32 + 9
 # host reads per chunk of the scan execution: the chunk's decision tensors
 # and its poses
 SCAN_HOST_READS = 2
@@ -266,6 +289,19 @@ EXT_POSE_READS = {"deep_pose": 1, "hybrid": 2}
 # the iterative option set held on the card against the CPU (extend phase)
 EXT_ITERATIVE = dict(scale_method="iterative", e_iterative_kp=True, scale_iterative_kp=True,
                      pnp_iterative_kp=True)
+# the multiseq phase: KITTI odometry 00-10, the sequences that KITTI scores,
+# each with its own left camera (fx, cx, cy of its calib.txt P2)
+MS_SEQS = tuple(f"{i:02d}" for i in range(11))
+MS_CAMS = {**{f"{i:02d}": (718.856, 607.1928, 185.2157) for i in range(3)},
+           "03": (721.5377, 609.5593, 172.854),
+           **{f"{i:02d}": (707.0912, 601.8873, 183.1104) for i in range(4, 11)}}
+# frame execution: 3 batched steps; scan execution: one full chunk of 32
+# and a padded one
+MS_FRAMES = 4
+MS_SCAN_FRAMES = 1 + 32 + 5
+# the batched step and the update on the card against the CPU (float32)
+MS_PARITY_S = 4
+MS_DEPTH_REL = 1e-4
 # the tracking scenes' intrinsics (tests/test_pipeline.py)
 TRACK_K = np.array([[370.0, 0, 320.0], [0, 371.0, 96.0], [0, 0, 1.0]], np.float32)
 # the variant each kernel's bf16 main-path launches must take
@@ -573,6 +609,7 @@ def reset_launch_counts():
         for counts in (getattr(fn, "variant_launches", {}), getattr(fn, "disp_launches", {})):
             for v in counts:
                 counts[v] = 0
+        fn.batch_launches.clear()
     return counters
 
 
@@ -1385,10 +1422,11 @@ def tracking_phase(fe, variables, scenes, frame, out_dir):
     return result
 
 
-def write_run_sequence(root, seed, frames=RUN_FRAMES):
-    """A KITTI-odometry-layout sequence of ``frames`` JPEG frames (a smooth
-    texture panning 2 px per frame), its calib.txt and GT poses (the
-    camera moving 5.6 cm right per frame, a 2 px shift at 20 m)."""
+def write_run_sequence(root, seed, frames=RUN_FRAMES, seq=RUN_SEQ, calib=RUN_CALIB):
+    """A KITTI-odometry-layout sequence ``seq`` of ``frames`` JPEG frames (a
+    smooth texture panning 2 px per frame), its calib.txt (``calib``, one
+    P line's 12 numbers) and GT poses (the camera moving 5.6 cm right per
+    frame, a 2 px shift at 20 m)."""
     import cv2
 
     h, w = RUN_SIZE
@@ -1396,7 +1434,7 @@ def write_run_sequence(root, seed, frames=RUN_FRAMES):
     span = w + 2 * frames
     coarse = rng.integers(0, 256, (h // 8, span // 8, 3)).astype(np.uint8)
     texture = cv2.resize(coarse, (span, h), interpolation=cv2.INTER_CUBIC)
-    seq_dir = os.path.join(root, "odom_data", RUN_SEQ)
+    seq_dir = os.path.join(root, "odom_data", seq)
     os.makedirs(os.path.join(seq_dir, "image_2"), exist_ok=True)
     os.makedirs(os.path.join(root, "gt_poses"), exist_ok=True)
     lines = []
@@ -1406,10 +1444,10 @@ def write_run_sequence(root, seed, frames=RUN_FRAMES):
         P = np.eye(4)
         P[0, 3] = 2 * 20.0 / 718.856 * i
         lines.append(" ".join(str(v) for v in P.flatten()[:12]))
-    with open(os.path.join(root, "gt_poses", f"{RUN_SEQ}.txt"), "w") as f:
+    with open(os.path.join(root, "gt_poses", f"{seq}.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
-        f.write("".join(f"P{j}: {RUN_CALIB}\n" for j in range(4)))
+        f.write("".join(f"P{j}: {calib}\n" for j in range(4)))
 
 
 class FrameRecorder:
@@ -1593,6 +1631,7 @@ def run_phase(seed, smi):
           f"modes {crec.modes}, (valid, inliers) {crec.counts}; relative |t| "
           f"{[f'{t:.2e}' for t in t_est]} m; worst rotation {worst_rot:.2e} deg, translation "
           f"{worst_t:.2e} of |t| (limit {F32_T_REL:g}); host reads per frame {crec.syncs}")
+    resume = resume_check(data, root)
     return {
         "frames": RUN_FRAMES, "size": [cfg.image.height, cfg.image.width],
         "dtype": str(vo.frontend.dtype).replace("torch.", ""), "loader": vo.loader,
@@ -1606,8 +1645,49 @@ def run_phase(seed, smi):
                             "valid_inliers": crec.counts, "t_norm_m": t_est,
                             "worst_rot_deg": worst_rot, "worst_t_of_t": worst_t,
                             "t_limit_of_t": F32_T_REL, "host_reads_per_frame": crec.syncs},
-        "nvidia_smi": smi,
+        "resume": resume, "nvidia_smi": smi,
     }
+
+
+def resume_check(data, root):
+    """A float32 frame run on the card (drawer off) saved with
+    ``save_state`` after frame RESUME_AT, loaded into a fresh DFVO and
+    continued with ``main(start_frame=RESUME_AT + 1)``, against the straight
+    run of RESUME_FRAMES frames: the same poses within RESUME_TOL."""
+    from dfvo_torch.pipeline.dfvo import DFVO
+
+    def vo(name):
+        cfg = load_cfg("float32")
+        cfg.seq = RUN_SEQ
+        cfg.directory.img_seq_dir = f"{data}/odom_data"
+        cfg.directory.gt_pose_dir = f"{data}/gt_poses"
+        cfg.directory.result_dir = os.path.join(root, "resume", name)
+        cfg.visualization.enable = False
+        return DFVO(cfg, device="cuda")
+
+    straight = vo("straight")
+    straight.main(num_frames=RESUME_FRAMES)
+    first = vo("first")
+    first.main(num_frames=RESUME_AT + 1)
+    path = first.save_state(os.path.join(root, "resume", "vo_state"))
+    resumed = vo("resumed")
+    ref_id = resumed.load_state(path)
+    if ref_id != RESUME_AT:
+        fail(f"resume: load_state gave ref_id {ref_id}, expected {RESUME_AT}")
+    resumed.main(start_frame=ref_id + 1, num_frames=RESUME_FRAMES - RESUME_AT - 1)
+    if sorted(resumed.global_poses) != sorted(straight.global_poses) != list(range(RESUME_FRAMES)):
+        fail(f"resume: frames {sorted(resumed.global_poses)} against "
+             f"{sorted(straight.global_poses)}")
+    worst = max(float(np.abs(resumed.global_poses[i].pose - straight.global_poses[i].pose).max())
+                for i in straight.global_poses)
+    moved = max(float(np.linalg.norm(p.pose[:3, 3])) for p in straight.global_poses.values())
+    print(f"  resume: saved after frame {RESUME_AT}, loaded into a fresh DFVO and continued "
+          f"to frame {RESUME_FRAMES - 1}: worst pose difference {worst:.2e} against the "
+          f"straight run (limit {RESUME_TOL:g}; the camera moved {moved:.2e} m)")
+    if not worst <= RESUME_TOL:
+        fail(f"resume: poses {worst:.2e} from the straight run")
+    return {"saved_after": RESUME_AT, "frames": RESUME_FRAMES, "worst_pose_diff": worst,
+            "moved_m": moved, "limit": RESUME_TOL}
 
 
 def oracle_chunk(h, w, pairs, seed):
@@ -1633,18 +1713,19 @@ def oracle_chunk(h, w, pairs, seed):
 
 
 class ScanRecorder:
-    """Wraps DFVO._main_scan under CUDA sync debug mode and splits its host
-    synchronisations, located by source line, at the end of the first
-    frame's depth and of each chunk (the ``depth_cnn`` and ``DF-VO``
-    timers)."""
+    """Wraps DFVO._main_scan (or ``cls.attr``, a loop timed the same way)
+    under CUDA sync debug mode and splits its host synchronisations,
+    located by source line, at the end of the first frame's depth and of
+    each chunk (the ``depth_cnn`` and ``DF-VO`` timers)."""
 
-    def __init__(self):
+    def __init__(self, cls=None, attr="_main_scan"):
         import warnings
 
-        from dfvo_torch.pipeline.dfvo import DFVO
         from dfvo_torch.utils.timer import Timer
 
-        self.cls, self.orig = DFVO, DFVO._main_scan
+        if cls is None:
+            from dfvo_torch.pipeline.dfvo import DFVO as cls
+        self.cls, self.attr, self.orig = cls, attr, getattr(cls, attr)
         self.timer, self.orig_end = Timer, Timer.end
         self.caught, self.marks, self.found = None, [], []
         rec = self
@@ -1668,7 +1749,8 @@ class ScanRecorder:
                                  else None for w in caught]
                     rec.caught = None
 
-        Timer.end, DFVO._main_scan = end, main_scan
+        Timer.end = end
+        setattr(cls, attr, main_scan)
 
     def windows(self):
         """Host reads before the first chunk, in each chunk, and after."""
@@ -1676,7 +1758,8 @@ class ScanRecorder:
         return [[f for f in self.found[a:b] if f] for a, b in zip(bounds, bounds[1:])]
 
     def close(self):
-        self.timer.end, self.cls._main_scan = self.orig_end, self.orig
+        self.timer.end = self.orig_end
+        setattr(self.cls, self.attr, self.orig)
 
 
 @phase("scan")
@@ -3147,6 +3230,349 @@ def hd3_phase(chk, seed, out_dir):
     return result
 
 
+def ms_cfg(data, result, dtype=None, execution="frame"):
+    """The default configuration over the multiseq phase's sequences."""
+    cfg = load_cfg(dtype)
+    cfg.directory.img_seq_dir = f"{data}/odom_data"
+    cfg.directory.gt_pose_dir = f"{data}/gt_poses"
+    cfg.directory.result_dir = result
+    cfg.tpu.execution = execution
+    return cfg
+
+
+def ms_expected(execution, frames, s):
+    """Launches by kernel and batch size, and host reads per window (before
+    the first step, each step, after), of the multi-sequence CLI over
+    ``frames`` frames of ``s`` sequences. A frame step runs LiteFlowNet on
+    the 2S images of the S pairs (5 cost volumes, 5 filters, 10 flow heads)
+    and the depth network on S (4 disparity heads), and reads the PnP
+    decision and the poses; a chunk runs each sequence's chunk step (the
+    networks on 2T = 64 and T = 32 images, one decision read each) and
+    reads the poses once. The first frames' depths: 4 heads at N = S."""
+    if execution == "frame":
+        steps = frames - 1
+        by_batch = {"correlation": {2 * s: 5 * steps}, "reg_dist_filter": {2 * s: 5 * steps},
+                    "head_conv": {2 * s: 10 * steps, s: 4 * steps + 4}}
+        return by_batch, [0] + [2] * steps + [0]
+    chunks = -(-(frames - 1) // 32)
+    calls = s * chunks
+    by_batch = {"correlation": {64: 5 * calls}, "reg_dist_filter": {64: 5 * calls},
+                "head_conv": {64: 10 * calls, 32: 4 * calls, s: 4}}
+    return by_batch, [0] + [s + 1] * chunks + [0]
+
+
+def ms_cli(seed, root, data, execution, frames):
+    """The multi-sequence CLI on the card over MS_SEQS, recorded and checked:
+    trajectories, launches by batch size and variant, host reads per step
+    by source line, the timer scopes, peak memory."""
+    from dfvo_torch.apis import run_multiseq as cli
+    from dfvo_torch.evaluation import KittiEvalOdom
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    s = len(MS_SEQS)
+    result = os.path.join(root, f"result_{execution}")
+    custom = os.path.join(root, f"custom_{execution}.yml")
+    with open(custom, "w") as f:
+        f.write(f"directory: {{img_seq_dir: {data}/odom_data, gt_pose_dir: {data}/gt_poses, "
+                f"result_dir: {result}}}\ntpu: {{execution: {execution}}}\n")
+    counters = reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = ScanRecorder(cli.MultiSeqRun, "run_frames" if execution == "frame" else "run_chunks")
+    try:
+        t0 = time.perf_counter()
+        run = cli.main(["-d", CFG, "-c", custom, "--seqs", *MS_SEQS, "--max_frames", str(frames)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_batch = {k: dict(sorted(fn.batch_launches.items())) for k, fn in counters.items()}
+    variants = {k: dict(fn.variant_launches) for k, fn in counters.items()}
+    want_batch, want_reads = ms_expected(execution, frames, s)
+    print(f"  {execution}: {s} sequences x {frames} frames, {run.cfg.image.height}x"
+          f"{run.cfg.image.width} {run.runner.frontend.dtype}, loader {run.loader}; main() "
+          f"{wall:.2f} s; launches by batch size {by_batch} (expected {want_batch}); by "
+          f"variant {variants}")
+    if by_batch != want_batch:
+        fail(f"multiseq {execution}: launches by batch size {by_batch} != {want_batch}")
+    for k, by in variants.items():
+        if by[MAIN_VARIANT[k]] != launches[k]:
+            fail(f"multiseq {execution}: {k} launches by variant {by}, expected all "
+                 f"{MAIN_VARIANT[k]}")
+    windows = rec.windows()
+    reads = [len(w) for w in windows]
+    where = {}
+    for w in windows:
+        for loc in w:
+            where[loc] = where.get(loc, 0) + 1
+    print(f"  host reads per window (first frames, each step, after) {reads}, expected "
+          f"{want_reads}; by source line {where}")
+    if reads != want_reads:
+        fail(f"multiseq {execution}: host reads {reads} != {want_reads} ({where})")
+    ev = {}
+    for name in MS_SEQS:
+        traj = load_poses_from_txt(os.path.join(result, f"{name}.txt"))
+        if sorted(traj) != list(range(frames)) or not all(np.isfinite(p).all()
+                                                          for p in traj.values()):
+            fail(f"multiseq {execution}: {name}.txt holds frames {sorted(traj)}, expected "
+                 f"{frames} finite poses")
+        gt = load_poses_from_txt(os.path.join(data, "gt_poses", f"{name}.txt"))
+        e = KittiEvalOdom().eval_seq(gt, traj, alignment="6dof")
+        if not all(np.isfinite(e[k]) for k in ("ate", "rpe_m", "rpe_deg")):
+            fail(f"multiseq {execution} {name}: eval_seq {e}")
+        ev[name] = e["ate"]
+    means = {k: 1e3 * run.timers.get_mean(k) for k in ("data_loading", "depth_cnn", "vo_step",
+                                                        "DF-VO") if k in run.timers.timers}
+    steps = len(run.timers.timers["vo_step"]["times"])
+    step_ms = [1e3 * t for t in run.timers.timers["vo_step"]["times"]]
+    per_seq_frame = sum(step_ms) / (s * (frames - 1))
+    print(f"  timer means (ms) {', '.join(f'{k} {v:.2f}' for k, v in means.items())}; vo_step "
+          f"per step {[round(t, 2) for t in step_ms]}; {per_seq_frame:.2f} ms of vo_step per "
+          f"sequence-frame; peak {peak:.2f} GiB; ATE (6dof) {min(ev.values()):.4f}.."
+          f"{max(ev.values()):.4f} m")
+    return {"sequences": s, "frames": frames, "steps": steps, "wall_s": wall,
+            "timer_mean_ms": means, "vo_step_ms": step_ms,
+            "vo_step_ms_per_sequence_frame": per_seq_frame, "peak_mem_gib": peak,
+            "launches": launches, "launches_by_batch": by_batch,
+            "host_reads": reads, "host_reads_by_line": where, "ate_6dof_m": ev}
+
+
+def ms_step_card_vs_cpu(seed, data, root):
+    """The batched VO step in float32 over the first MS_PARITY_S sequences
+    on the card and on the CPU, from the same frames, reference depth and
+    keys: modes equal, depths within MS_DEPTH_REL, each sequence's pose
+    within 0.01 deg and F32_T_REL of its translation (the run phase's
+    float32 limits)."""
+    from dfvo_torch.apis.run_multiseq import MultiSeqRun
+    from dfvo_torch.pipeline.dfvo import depth_only
+    from dfvo_torch.utils import prng
+
+    seqs, p = MS_SEQS[:MS_PARITY_S], MS_PARITY_S
+    runs = {dev: MultiSeqRun(ms_cfg(data, os.path.join(root, f"f32_{dev}"), "float32"), seqs,
+                             torch.device(dev), max_frames=2) for dev in ("cuda", "cpu")}
+    host = runs["cpu"]
+    host.open_loaders()
+    try:
+        ref, cur = host.next_batch(), host.next_batch()
+    finally:
+        host.close()
+    depth_ref = depth_only(host.runner.frontend, host.variables, torch.from_numpy(ref))
+    keys = prng.fold_in_many(prng.PRNGKey(seed), np.arange(p, 2 * p))
+    out = {}
+    for dev, r in runs.items():
+        t0 = time.perf_counter()
+        poses, modes, depth = r.runner.make_vo_step()(
+            r.variables, torch.from_numpy(cur).to(dev), torch.from_numpy(ref).to(dev),
+            depth_ref.to(dev), torch.eye(4, device=dev).expand(p, 4, 4), keys, r.K, r.K_inv)
+        out[dev] = (poses.cpu().double().numpy(), modes.cpu().tolist(), depth.cpu(),
+                    time.perf_counter() - t0)
+    (cp, cm, cd, cs), (hp, hm, hd, hs) = out["cuda"], out["cpu"]
+    depth_rel = float(((cd - hd).abs() / hd.abs().clamp(min=1e-6)).max())
+    rot = [rot_deg(cp[i, :3, :3], hp[i, :3, :3]) for i in range(p)]
+    t_norm = [float(np.linalg.norm(hp[i, :3, 3])) for i in range(p)]
+    t_rel = [float(np.linalg.norm(cp[i, :3, 3] - hp[i, :3, 3])) / t if t > 0 else math.inf
+             for i, t in zip(range(p), t_norm)]
+    print(f"  batched step float32 S = {p}, card vs CPU: modes {cm} / {hm}; depth rel "
+          f"{depth_rel:.2e} (limit {MS_DEPTH_REL:g}); rotation {max(rot):.2e} deg; translation "
+          f"{max(t_rel):.2e} of |t| {[f'{t:.2e}' for t in t_norm]} m (limit {F32_T_REL:g}); "
+          f"card {cs:.2f} s, CPU {hs:.2f} s", flush=True)
+    if cm != hm or not depth_rel <= MS_DEPTH_REL or max(rot) >= 0.01 or max(t_rel) > F32_T_REL:
+        fail(f"multiseq step card vs CPU: modes {cm} / {hm}, depth {depth_rel}, rotation {rot}, "
+             f"translation {t_rel}")
+    return {"sequences": p, "modes": cm, "depth_rel": depth_rel, "worst_rot_deg": max(rot),
+            "worst_t_of_t": max(t_rel), "t_norm_m": t_norm, "t_limit_of_t": F32_T_REL,
+            "card_s": cs, "cpu_s": hs}
+
+
+def ms_update(seed, data, out_dir):
+    """One sequence-averaged finetuning update over MS_PARITY_S pairs
+    (ablation_self_flow_online.yml on the default, float32, TF32 off): the
+    loss and the flow gradient on the card against the CPU (FT_F32_LIMITS);
+    then ``make_train_step`` on the card: its launches at N = 2S (float32
+    variants), CUDA-event ms, kernels, busy share and peak memory."""
+    from dfvo_torch.datasets import datasets as registry
+    from dfvo_torch.parallel import MultiSeqRunner
+    from dfvo_torch.utils import ConfigLoader
+
+    cfg = ConfigLoader().merge_cfg([CFG, ABLATION_CFG])
+    cfg.directory.img_seq_dir = f"{data}/odom_data"
+    cfg.directory.gt_pose_dir = f"{data}/gt_poses"
+    cams = []
+    for name in MS_SEQS[:MS_PARITY_S]:
+        cfg.seq = name
+        cams.append(registry[cfg.dataset](cfg).cam_intrinsics)
+    K = np.stack([c.mat for c in cams]).astype(np.float32)
+    K_inv = np.stack([c.inv_mat for c in cams]).astype(np.float32)
+    p, h, w = MS_PARITY_S, cfg.image.height, cfg.image.width
+    frames = np.stack([make_frames(seed + i, 2, h, w) for i in range(p)])  # [S x 2 x H x W x 3]
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (p, 4, 4)).copy()
+    poses[:, :3, 3] = [0.02, 0.0, 0.5]
+
+    def setup(dev):
+        runner = MultiSeqRunner(cfg, device=dev)
+        fe = runner.frontend
+        variables = {net: {k: v.to(dev) for k, v in sd.items()}
+                     for net, sd in fe.init_variables(torch.Generator().manual_seed(seed)).items()}
+        state = runner.finetuner.init_state(variables, K, K_inv)
+        imgs = torch.from_numpy(frames).to(dev).float() / 255.0
+        return runner, variables, state, imgs[:, 0], imgs[:, 1], torch.from_numpy(poses).to(dev)
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        runner, variables, _, ref, cur, pose = setup(dev)
+        t0 = time.perf_counter()
+        loss, g = runner.finetuner.value_and_grad(variables, ref, cur, pose)
+        grads[dev] = (float(loss), {k: t.cpu() for k, t in g["flow"].items()},
+                      time.perf_counter() - t0)
+    (lc, gc, tc), (lh, gh, th) = grads["cuda"], grads["cpu"]
+    a = torch.cat([t.ravel() for t in gc.values()]).double()
+    b = torch.cat([gh[k].ravel() for k in gc]).double()
+    loss_rel, grad_rel = abs(lc - lh) / abs(lh), float((a - b).norm() / b.norm())
+    print(f"  sequence-averaged update S = {p} at {h}x{w} float32, TF32 off: loss {lc:.7f} / "
+          f"{lh:.7f} (rel {loss_rel:.2e}, limit {FT_F32_LIMITS['loss_rel']:g}); flow gradient "
+          f"rel {grad_rel:.2e} by norm (limit {FT_F32_LIMITS['flow_grad_rel']:g}); card "
+          f"{tc:.2f} s, CPU {th:.2f} s", flush=True)
+    if not (loss_rel <= FT_F32_LIMITS["loss_rel"] and grad_rel <= FT_F32_LIMITS["flow_grad_rel"]):
+        fail(f"multiseq update card vs CPU: loss rel {loss_rel}, gradient rel {grad_rel}")
+
+    runner, variables, state, ref, cur, pose = setup("cuda")
+    train = runner.make_train_step()
+
+    def step():
+        train(variables, state, ref, cur, pose)
+
+    counters = reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    by_batch = {k: dict(fn.batch_launches) for k, fn in counters.items()}
+    variants = {k: dict(fn.variant_launches) for k, fn in counters.items()}
+    want = {"correlation": {2 * p: 5}, "reg_dist_filter": {2 * p: 5}, "head_conv": {2 * p: 10}}
+    print(f"  train step launches by batch size {by_batch} (expected {want}); by variant "
+          f"{variants}")
+    if by_batch != want or any(variants[k][FT_VARIANT[k]] != sum(want[k].values())
+                               for k in want):
+        fail(f"multiseq train step launches {by_batch} / {variants}, expected {want} on "
+             f"{FT_VARIANT}")
+    syncs = count_syncs(step)
+    ms = time_cuda(step, reps=1, rounds=3)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_call(step, "multiseq_train_step", out_dir)
+    print(f"  train step S = {p}: {ms:.2f} ms (CUDA events, median), {ms / p:.2f} ms per "
+          f"sequence, {syncs} host syncs, peak {peak:.2f} GiB")
+    return {"sequences": p, "loss_rel": loss_rel, "flow_grad_rel": grad_rel,
+            "limits": {k: FT_F32_LIMITS[k] for k in ("loss_rel", "flow_grad_rel")},
+            "launches_by_batch": by_batch, "ms": ms, "ms_per_sequence": ms / p,
+            "host_syncs": syncs, "peak_mem_gib": peak,
+            **{k: v for k, v in prof.items() if k != "top"}}
+
+
+def ms_times(data, root, out_dir, single_frame_ms):
+    """The batched VO step and chunk step over all MS_SEQS at the default
+    configuration (192x640 bf16): CUDA-event ms per call, per
+    sequence-frame, host syncs, kernels, busy share and peak memory,
+    beside the single-sequence frame_step of the tracking phase."""
+    from dfvo_torch.apis.run_multiseq import MultiSeqRun
+    from dfvo_torch.pipeline.dfvo import depth_only
+    from dfvo_torch.utils import prng
+    from dfvo_torch.utils.device import upload
+
+    s, t = len(MS_SEQS), 32
+    run = MultiSeqRun(ms_cfg(data, os.path.join(root, "times")), MS_SEQS, torch.device("cuda"),
+                      max_frames=t + 1)
+    run.open_loaders()
+    try:
+        batches = [run.next_batch() for _ in range(t + 1)]
+    finally:
+        run.close()
+    ref, cur = upload(batches[0], "cuda"), upload(batches[1], "cuda")
+    depth_ref = depth_only(run.runner.frontend, run.variables, ref)
+    eye = torch.eye(4, device="cuda").expand(s, 4, 4)
+    base = prng.PRNGKey(SEED)
+    vo_step = run.runner.make_vo_step()
+    keys = prng.fold_in_many(base, np.arange(s, 2 * s))
+
+    def frame():
+        return vo_step(run.variables, cur, ref, depth_ref, eye, keys, run.K, run.K_inv)
+
+    chunk_step = run.runner.make_chunk_step()
+    imgs = upload(np.stack(batches[1:], axis=1), "cuda")  # [S x T x H x W x 3]
+    rngs = prng.fold_in_many(prng.fold_in_many(base, np.arange(1, t + 1))[None],
+                             np.arange(s)[:, None])
+    carry = (ref, depth_ref, eye, np.ones(s, np.float32))
+
+    def chunk():
+        return chunk_step(run.variables, imgs, carry, rngs, run.K, run.K_inv)
+
+    out = {}
+    for name, fn, reps, rounds, seq_frames, want_syncs in (
+            ("vo_step", frame, 2, 3, s, 1), ("chunk_step", chunk, 1, 2, s * t, s)):
+        syncs = count_syncs(fn)
+        if syncs != want_syncs:
+            fail(f"multiseq {name}: {syncs} host syncs, expected {want_syncs}")
+        ms = time_cuda(fn, reps=reps, rounds=rounds)
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the chunk step over S sequences is S single-sequence chunk steps,
+        # whose kernels and busy share the scan phase profiles; a trace of
+        # its ~140,000 kernels takes minutes to read back (1.2 ms each)
+        prof = profile_call(fn, f"multiseq_{name}", out_dir) if name == "vo_step" else {}
+        out[name] = {"sequences": s, "ms": ms, "ms_per_sequence_frame": ms / seq_frames,
+                     "host_syncs": syncs, "peak_mem_gib": peak,
+                     **{k: v for k, v in prof.items() if k != "top"}}
+        print(f"  {name} S = {s}: {ms:.2f} ms (CUDA events, median), {ms / seq_frames:.3f} ms "
+              f"per sequence-frame, {syncs} host syncs, peak {peak:.2f} GiB"
+              + ("" if prof else f"; kernels: {s} x the scan phase's chunk_step"), flush=True)
+    out["single_frame_step_ms"] = single_frame_ms
+    print(f"  single-sequence frame_step (tracking phase): {single_frame_ms:.2f} ms/frame; "
+          f"batched {out['vo_step']['ms_per_sequence_frame']:.2f} ms per sequence-frame "
+          f"({single_frame_ms / out['vo_step']['ms_per_sequence_frame']:.2f}x)")
+    return out
+
+
+@phase("multiseq")
+def multiseq_phase(seed, out_dir, single_frame_ms):
+    """Multi-sequence runs on the card: the run_multiseq CLI over the 11
+    KITTI-scored sequences in both executions; the batched step in float32
+    against the CPU; one sequence-averaged update against the CPU; the
+    times of the batched steps."""
+    root = os.path.join(ROOT, "build", "chip_smoke", "multiseq")
+    data = os.path.join(root, "data")
+    for i, name in enumerate(MS_SEQS):
+        fx, cx, cy = MS_CAMS[name]
+        write_run_sequence(data, seed + i, MS_SCAN_FRAMES, seq=name,
+                           calib=f"{fx} 0.0 {cx} 0.0 0.0 {fx} {cy} 0.0 0.0 0.0 1.0 0.0")
+    print(f"  {len(MS_SEQS)} sequences of {MS_SCAN_FRAMES} frames {RUN_SIZE[1]}x{RUN_SIZE[0]} "
+          f"jpg in {os.path.relpath(data, ROOT)}")
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    lap("write")
+    cli = {}
+    for ex, frames in (("frame", MS_FRAMES), ("scan", MS_SCAN_FRAMES)):
+        cli[ex] = ms_cli(seed, root, data, ex, frames)
+        lap(f"cli_{ex}")
+    parity = ms_step_card_vs_cpu(seed, data, root)
+    lap("step_card_vs_cpu")
+    update = ms_update(seed, data, out_dir)
+    lap("update")
+    times = ms_times(data, root, out_dir, single_frame_ms)
+    lap("times")
+    print("  seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"cli": cli, "step_card_vs_cpu": parity, "update": update, "times": times,
+            "seconds_by_part": parts}
+
+
 def hd3_summary(hd3, smi):
     """The hd3 phase's numbers for its JSON line."""
     return {"cli": {k: {kk: vv for kk, vv in v.items() if kk != "host_reads_by_line"}
@@ -3201,6 +3627,7 @@ def main():
     finetune = finetune_phase(chk, SEED, out_dir)
     extend = extend_phase(chk, SEED, out_dir)
     hd3 = hd3_phase(chk, SEED, out_dir)
+    multiseq = multiseq_phase(SEED, out_dir, tracking["frame_step"]["ms_per_frame"])
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -3223,6 +3650,9 @@ def main():
          "bound_ms": sums[name]["bound_ms"], "bound_by": sums[name]["bound_by"],
          "library_ms": sums[name]["library_ms"],
          "launches_extend": extend["launches"][name],
+         "launches_multiseq": {ex: multiseq["cli"][ex]["launches_by_batch"][name]
+                               for ex in ("frame", "scan")},
+         "launches_multiseq_update": multiseq["update"]["launches_by_batch"][name],
          "at_370x1226": {k: extend["kernel_sums"][name][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")}}
         for name, (src, rep) in sources.items()
@@ -3252,7 +3682,7 @@ def main():
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
         "tracking": tracking, "run": run, "scan": scan, "finetune": finetune,
-        "extend": extend, "hd3": hd3, "lost_traces": LOST_TRACES,
+        "extend": extend, "hd3": hd3, "multiseq": multiseq, "lost_traces": LOST_TRACES,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
@@ -3292,6 +3722,7 @@ def main():
         "nvidia_smi": smi}}))
     print(json.dumps({"extend": ext_summary(extend, smi)}))
     print(json.dumps({"hd3": hd3_summary(hd3, smi)}))
+    print(json.dumps({"multiseq": {**multiseq, "nvidia_smi": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ coordinates, fixed shapes, on the device of the inputs.
 import torch
 
 from ..ops.warp import coords_grid
-from ..solvers.linalg import spd_smallest_eigvec
+from ..solvers.linalg import batch_matrix, spd_smallest_eigvec
 from ..utils.precision import highp
 
 
@@ -68,9 +68,10 @@ def rigid_flow(depth, T, K, inv_K):
 @highp
 def unproject_kp(kp, kp_depth, inv_K):
     """Pixel keypoints [... x N x 2] + depths [... x N] -> camera-frame
-    points [... x N x 3]."""
+    points [... x N x 3], with inverse intrinsics [3 x 3] or [... x 3 x 3]
+    per frame."""
     pix_h = torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1)
-    rays = pix_h @ inv_K.T
+    rays = pix_h @ batch_matrix(inv_K, pix_h).mT
     return rays * kp_depth[..., None]
 
 

@@ -17,6 +17,8 @@ Monodepth2's disparity heads (3x3, Cout = 1, reflect-padded by the caller).
   bias (the JAX package's ``_hc_bwd``).
 """
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
@@ -110,11 +112,14 @@ def head_conv_cuda(x, kernel, bias=None, prepadded=False):
     cuda_lib.check(rc, f"head_conv ({variant})")
     head_conv_cuda.launches += 1
     head_conv_cuda.variant_launches[variant] += 1
+    head_conv_cuda.batch_launches[n] += 1
     return out
 
 
 head_conv_cuda.launches = 0
 head_conv_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
+# by batch size N
+head_conv_cuda.batch_launches = collections.Counter()
 
 
 HeadConvFunction = kernel_function("HeadConvFunction", head_conv_cuda, head_conv_plain, 3)

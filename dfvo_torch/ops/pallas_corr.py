@@ -14,6 +14,8 @@ Two variants, chosen by :func:`correlation_variant` from dtype and layout:
 pixels: the main path) and ``cuda_core`` (float32 and everything else).
 """
 
+import collections
+
 import torch
 
 from . import cuda_lib
@@ -93,6 +95,7 @@ def correlation_cuda(f1, f2, max_disp=3, stride=1):
     correlation_cuda.launches += 1
     correlation_cuda.variant_launches[variant] += 1
     correlation_cuda.disp_launches[max_disp] += 1
+    correlation_cuda.batch_launches[n] += 1
     return out
 
 
@@ -100,3 +103,5 @@ correlation_cuda.launches = 0
 correlation_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
 # by window: D = 3 (LiteFlowNet, 49 channels) and D = 4 (HD3, 81 channels)
 correlation_cuda.disp_launches = {3: 0, 4: 0}
+# by batch size N
+correlation_cuda.batch_launches = collections.Counter()

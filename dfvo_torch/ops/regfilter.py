@@ -24,6 +24,8 @@ Regularization), and the two steps are one op:
   normalisation differentiated by autodiff, then ``_rf_bwd``).
 """
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
@@ -119,11 +121,14 @@ def reg_dist_filter_cuda(raw, flow, wx, bx, wy, by, k):
     cuda_lib.check(rc, "reg_dist_filter")
     reg_dist_filter_cuda.launches += 1
     reg_dist_filter_cuda.variant_launches["async_tile"] += 1
+    reg_dist_filter_cuda.batch_launches[n] += 1
     return out
 
 
 reg_dist_filter_cuda.launches = 0
 reg_dist_filter_cuda.variant_launches = {"async_tile": 0}
+# by batch size N
+reg_dist_filter_cuda.batch_launches = collections.Counter()
 
 
 RegDistFilterFunction = kernel_function(

@@ -20,6 +20,11 @@ tensors and its poses. Online finetuning (``online_finetune.enable``,
 ``pipeline/finetune.py``) adds no read to either: after each tracked frame,
 or after each chunk, it updates the float32 masters on the device from the
 pose still on the device, and refreshes the inference copy there.
+
+``DFVO.save_state`` checkpoints the mid-sequence state of the frame
+execution (the JAX package's fields, ``utils/checkpoint.py``); a fresh
+instance that ``load_state``s it resumes with
+``main(start_frame=ref_id + 1)``.
 """
 
 import os
@@ -37,7 +42,6 @@ from .frontend import DeepFrontend
 from .tracking import TrackingConfig, tracking_step
 
 _MODE_NAMES = {0: "Const.", 1: "Ess. Mat.", 2: "PnP", 3: "DeepPose"}
-_ITEM11 = "ROADMAP queue 1 item 11, 'Scale-out and state'"
 # the frame step's outputs that the drawer reads
 _DRAWN = ("mode", "kp_ref", "kp_cur", "kp_valid", "inliers", "depth_cur", "flow_fwd",
           "flow_bwd", "flow_diff", "rigid_flow_diff")
@@ -51,9 +55,12 @@ def _to_unit_float(img_u8):
 @torch.no_grad()
 def depth_only(frontend, variables, img_u8):
     """Raw depth [H x W] of one uint8 frame [H x W x 3] (the first frame's
-    reference depth)."""
-    img = _to_unit_float(img_u8)[None].to(frontend.dtype)
-    return frontend._depth(variables, img)[0]
+    reference depth), or [S x H x W] of S frames [S x H x W x 3] (the
+    first frames of S sequences)."""
+    single = img_u8.dim() == 3
+    depth = frontend._depth(variables, _to_unit_float(img_u8[None] if single else img_u8)
+                            .to(frontend.dtype))
+    return depth[0] if single else depth
 
 
 @torch.no_grad()
@@ -470,10 +477,60 @@ class DFVO:
         return self.save_results()
 
     def save_state(self, path):
-        raise NotImplementedError(f"DFVO.save_state is not ported yet ({_ITEM11})")
+        """Checkpoint the mid-sequence VO state in the directory ``path``
+        (``utils/checkpoint.py`` ``save_variables``): the network variables
+        (finetuned ones included) and, as ``train_state``, the trajectory
+        so far (``global_poses`` [n x 4 x 4] float32 and ``pose_ids``), the
+        frame cursor (``tracking_stage``), ``prev_scale``, and the
+        reference frame (``ref_id``, ``ref_motion``, ``ref_raw_depth``,
+        ``ref_img`` uint8): the fields of the JAX package's ``save_state``.
+        As there, the Adam moments are not saved, and a scan run leaves no
+        reference frame to save (KeyError). Returns the absolute path."""
+        from ..utils.checkpoint import save_variables
+
+        ids = sorted(self.global_poses)
+        ref = self.ref_data
+        state = {
+            "global_poses": torch.as_tensor(
+                np.stack([self.global_poses[k].pose for k in ids]), dtype=torch.float32),
+            "pose_ids": torch.as_tensor(ids, dtype=torch.int64),
+            "tracking_stage": torch.tensor(self.tracking_stage, dtype=torch.int64),
+            "prev_scale": torch.as_tensor(self.prev_scale, dtype=torch.float32).reshape(()),
+            "ref_id": torch.tensor(ref.get("id", 0), dtype=torch.int64),
+            "ref_motion": ref["motion"].to(torch.float32),
+            "ref_raw_depth": ref["raw_depth_dev"].to(torch.float32),
+            "ref_img": ref["img_dev"].to(torch.uint8),
+        }
+        return save_variables(path, self.variables, train_state=state)
 
     def load_state(self, path):
-        raise NotImplementedError(f"DFVO.load_state is not ported yet ({_ITEM11})")
+        """Resume from :meth:`save_state`: the variables, the trajectory,
+        the scale and the reference frame, on this instance's device.
+        Continue with ``main(start_frame=ref_id + 1)`` (frame execution).
+        Returns ``ref_id``."""
+        from ..utils.checkpoint import restore_variables
+
+        payload = restore_variables(path)
+        variables = payload["variables"]
+        if self.finetuner is not None:  # the float32 masters live on the device
+            variables = {net: {k: v.to(self.device) for k, v in sd.items()}
+                         for net, sd in variables.items()}
+        self.variables = variables
+        self.infer_variables = self.frontend.prepare_variables(self.variables)
+        vo = payload["train_state"]
+        self.global_poses = {int(i): SE3(p.numpy().astype(np.float64))
+                             for i, p in zip(vo["pose_ids"], vo["global_poses"])}
+        self.tracking_stage = int(vo["tracking_stage"])
+        self.prev_scale = self._upload(vo["prev_scale"], torch.float32)
+        ref_id = int(vo["ref_id"])
+        self.ref_data = {
+            "id": ref_id,
+            "img": vo["ref_img"].numpy(),
+            "img_dev": self._upload(vo["ref_img"]),
+            "raw_depth_dev": self._upload(vo["ref_raw_depth"], torch.float32),
+            "motion": self._upload(vo["ref_motion"], torch.float32),
+        }
+        return ref_id
 
     def save_results(self):
         """Write ``<seq>.txt`` (and ``map.png`` with the drawer, and the

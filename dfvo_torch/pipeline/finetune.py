@@ -31,9 +31,6 @@ from ..ops.warp import flow_to_coords, grid_sample
 from ..utils.device import upload
 from .frontend import forward_backward_consistency, resize_dense_flow
 
-_ITEM11 = "ROADMAP queue 1 item 11, 'Scale-out and state'"
-
-
 def _with_t(T, t):
     """[B x 4 x 4] transforms T with their translations replaced by ``t``
     [B x 3]."""
@@ -130,12 +127,14 @@ class OnlineFinetuner:
 
     # -- loss pieces --------------------------------------------------------
     def flow_loss(self, flow_vars, img_ref, img_cur):
-        """The flow loss over the configured scales, for [1 x H x W x 3]
-        images: the flow network on the forward and backward pair as one
-        batch of two. LiteFlowNet gives a flow per scale; HD3 gives its one
-        final-level flow under every scale, so for HD3 only the 1/2^s
-        weights differ between the scales."""
+        """The flow loss over the configured scales, for [B x H x W x 3]
+        images: the flow network on the B forward and B backward pairs as
+        one batch of 2B. Every term is a mean over the batch, so the loss
+        of B pairs is the mean of their B losses. LiteFlowNet gives a flow
+        per scale; HD3 gives its one final-level flow under every scale, so
+        for HD3 only the 1/2^s weights differ between the scales."""
         h, w = self.frontend.h, self.frontend.w
+        b = img_ref.shape[0]
         img1 = torch.cat([img_ref, img_cur], dim=0)
         img2 = torch.cat([img_cur, img_ref], dim=0)
         th, tw = self.frontend.flow_feed
@@ -151,7 +150,7 @@ class OnlineFinetuner:
         total = 0.0
         for s in scales:
             flow_full = resize_dense_flow(flows[s], h, w)
-            f_fwd, f_bwd = flow_full[0:1], flow_full[1:2]
+            f_fwd, f_bwd = flow_full[:b], flow_full[b:]
 
             # photometric: the current image warped into the reference view
             warped = grid_sample(img_cur, flow_to_coords(f_fwd), padding_mode="border")
@@ -253,15 +252,19 @@ class OnlineFinetuner:
         """The finetuning step ``update(variables, opt_state, img_ref,
         img_cur, pose) -> (variables, opt_state, loss)`` for [H x W x 3]
         float images and a [4 x 4] pose, all on the device. The parameters
-        and the moments are updated in place. The multi-sequence step (a
-        gradient mean over ``axis_name``) is not ported."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"make_update_fn(axis_name=...) is not ported yet ({_ITEM11})")
+        and the moments are updated in place.
+
+        With ``axis_name`` (the JAX package's ``pmean`` over a mesh axis)
+        the step takes S sequences' pairs, [S x H x W x 3] images and
+        [S x 4 x 4] poses, and makes one Adam step on the mean of their S
+        losses, whose gradient is the mean of the S per-sequence
+        gradients; the networks run once on the batch of 2S images. One
+        GPU holds every sequence, so the name only selects this form."""
 
         def update(variables, opt_state, img_ref, img_cur, pose):
-            loss, grads = self.value_and_grad(variables, img_ref[None], img_cur[None],
-                                              pose[None])
+            if axis_name is None:
+                img_ref, img_cur, pose = img_ref[None], img_cur[None], pose[None]
+            loss, grads = self.value_and_grad(variables, img_ref, img_cur, pose)
             opt_state = self.optimizer.update(grads, opt_state, self._trainable(variables))
             return variables, opt_state, loss
 
@@ -302,8 +305,9 @@ class OnlineFinetuner:
 
     def init_state(self, variables, K, K_inv):
         """The Adam state of the trainable tensors (zero moments, step 0);
-        keeps the intrinsics ([3 x 3] host arrays) on the networks' device
-        for the depth loss."""
+        keeps the intrinsics ([3 x 3] host arrays, or [S x 3 x 3] for the
+        sequences of a multi-sequence step) on the networks' device for the
+        depth loss."""
         self._K = upload(K, self.frontend.device, torch.float32)
         self._K_inv = upload(K_inv, self.frontend.device, torch.float32)
         return self.optimizer.init(self._trainable(variables))

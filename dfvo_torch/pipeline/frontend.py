@@ -320,45 +320,59 @@ class DeepFrontend:
     # -- per-frame inference --------------------------------------------------
     @torch.no_grad()
     def infer(self, variables, img_cur, img_ref, depth_cur=None):
-        """Depth of the current view + bidirectional flow ref <-> cur.
+        """Depth of the current view + bidirectional flow ref <-> cur, for
+        one frame pair or for S independent pairs (the JAX package's
+        ``jax.vmap(frontend.infer)``) in one network call.
 
         Args:
             variables: prepared network variables.
-            img_cur, img_ref: [H x W x 3] float images in [0, 1].
-            depth_cur: optional [H x W] externally supplied raw depth; when
-                given, the depth network is skipped.
+            img_cur, img_ref: [H x W x 3] float images in [0, 1], or
+                [S x H x W x 3] for S pairs (pair s is img_ref[s] ->
+                img_cur[s]).
+            depth_cur: optional [(S x) H x W] externally supplied raw
+                depth; when given, the depth network is skipped.
 
         Returns:
-            dict with ``depth_cur`` [H x W] (raw metric depth),
-            ``flow_fwd`` [H x W x 2] (ref -> cur, full-res pixels),
-            ``flow_bwd`` [H x W x 2], ``flow_diff`` [H x W], and with the
-            pose CNN ``deep_pose`` [4 x 4] (float32).
+            dict with ``depth_cur`` [(S x) H x W] (raw metric depth),
+            ``flow_fwd`` [(S x) H x W x 2] (ref -> cur, full-res pixels),
+            ``flow_bwd`` [(S x) H x W x 2], ``flow_diff`` [(S x) H x W],
+            and with the pose CNN ``deep_pose`` [(S x) 4 x 4] (float32).
         """
-        img_cur = img_cur[None].to(self.dtype)
-        img_ref = img_ref[None].to(self.dtype)
+        single = img_cur.dim() == 3
+        if single:
+            img_cur, img_ref = img_cur[None], img_ref[None]
+            if depth_cur is not None:
+                depth_cur = depth_cur[None]
+        s = img_cur.shape[0]
+        img_cur = img_cur.to(self.dtype)
+        img_ref = img_ref.to(self.dtype)
         if depth_cur is None:
-            depth_cur = self._depth(variables, img_cur)[0]
+            depth_cur = self._depth(variables, img_cur)
         else:
             depth_cur = depth_cur.float()
 
-        # batched forward+backward; img2 is img1 with the batch flipped, so
-        # LiteFlowNet shares the feature pass (HD3 encodes all four)
-        img1 = torch.cat([img_ref, img_cur], dim=0)
-        img2 = torch.cat([img_cur, img_ref], dim=0)
+        # batched forward+backward: img1 = [ref_0..ref_{S-1}, cur_{S-1}..cur_0]
+        # and img2 is img1 with the batch flipped, so that each image's
+        # partner is its pair's other image and LiteFlowNet's ``shared``
+        # mode computes the feature pass once (HD3 encodes all 4S images)
+        img1 = torch.cat([img_ref, img_cur.flip(0)], dim=0)
+        img2 = img1.flip(0)
         th, tw = self.flow_feed
         if (th, tw) != (self.h, self.w):
             img1 = resize_bilinear(img1, th, tw, align_corners=True)
             img2 = resize_bilinear(img2, th, tw, align_corners=True)
         flow_feed_res = self._flow(variables, img1, img2, "shared")
+        f_fwd_n, f_bwd_n = flow_feed_res[:s], flow_feed_res[s:].flip(0)
 
-        flow_full = resize_dense_flow(flow_feed_res, self.h, self.w)
-        flow_diff = self._consistency(flow_feed_res[0:1], flow_feed_res[1:2])
+        flow_full = resize_dense_flow(torch.cat([f_fwd_n, f_bwd_n]), self.h, self.w)
         out = {
             "depth_cur": depth_cur,
-            "flow_fwd": flow_full[0],
-            "flow_bwd": flow_full[1],
-            "flow_diff": flow_diff[0],
+            "flow_fwd": flow_full[:s],
+            "flow_bwd": flow_full[s:],
+            "flow_diff": self._consistency(f_fwd_n, f_bwd_n),
         }
         if self.use_pose_net:
-            out["deep_pose"] = self.pose_apply(variables["pose"], img_ref, img_cur)[0].float()
+            out["deep_pose"] = self.pose_apply(variables["pose"], img_ref, img_cur).float()
+        if single:
+            out = {k: v[0] for k, v in out.items()}
         return out

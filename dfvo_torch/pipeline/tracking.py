@@ -36,6 +36,7 @@ import dataclasses
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..geometry.lie import make_se3, se3_inverse
@@ -376,7 +377,9 @@ def tracking_step(rng, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, prev_m
         depth_cur_raw, depth_ref_raw: [... x H x W] raw CNN depths.
         prev_motion: [... x 4 x 4] previous relative pose (constant-motion
             model).
-        K, K_inv: [3 x 3] intrinsics, float32, on the inputs' device.
+        K, K_inv: [3 x 3] intrinsics, float32, on the inputs' device, or
+            [... x 3 x 3] with the inputs' leading frame axes (one camera
+            per sequence).
         tcfg: TrackingConfig.
         prev_scale: previous frame's scale (number or 0-d tensor): the
             iterative scale recovery's seed and the jump guard's reference.
@@ -519,7 +522,7 @@ def _scale_stage_carried(stage, prev_scale, K, K_inv, tcfg):
     for i in range(stage[4].shape[0]):
         e_out, T_e, scale, spike = _scale_stage(
             stage[0][i], {k: v[i] for k, v in stage[1].items()}, *[t[i] for t in stage[2:]],
-            carry, K, K_inv, tcfg)
+            carry, *[k if k.dim() == 2 else k[i] for k in (K, K_inv)], tcfg)
         carry = torch.where(scale > 0, scale, carry)
         outs.append((e_out, T_e, scale, spike))
     e_out = {k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]}
@@ -543,7 +546,11 @@ def _finish_tracking_step(rng, tcfg, kp, e_out, e_success, pose_e, scale, spike,
         pnp_out = skip
     elif tcfg.defer_pnp:  # the chunk runs the fallback (scan_runner.py)
         pnp_out = skip
-    elif bool(need_pnp.any()):  # the step's one host synchronisation
+    elif need_pnp.dim():  # the step's one host synchronisation
+        pnp_out = _pnp_where_needed(need_pnp.cpu().numpy(), skip, rng, kp_ref, kp_cur, valid,
+                                    depth_ref, flow_fwd, flow_diff, depth_ref_raw, K, K_inv,
+                                    tcfg)
+    elif bool(need_pnp):  # the step's one host synchronisation
         pnp_out = pnp_fallback(rng, kp_ref, kp_cur, valid, depth_ref, flow_fwd, flow_diff,
                                depth_ref_raw, K, K_inv, tcfg)
     else:
@@ -581,6 +588,40 @@ def _finish_tracking_step(rng, tcfg, kp, e_out, e_success, pose_e, scale, spike,
         "need_pnp": need_pnp,
         "depth_ref": depth_ref,
     }
+
+
+def _pnp_where_needed(need, skip, rng, kp_ref, kp_cur, valid, depth_ref, flow_fwd,
+                      flow_diff, depth_ref_raw, K, K_inv, tcfg):
+    """The PnP fallback of a step over leading frame axes, run once,
+    batched over the frames whose ``need`` (a host array of the leading
+    shape) is set; the other frames keep ``skip``'s pose and inliers.
+    Under the JAX package's ``vmap`` the fallback's ``lax.cond`` is a
+    select, which runs it for every frame; each frame's result is the
+    same."""
+    lead = need.shape
+    skip_T = skip["T"].expand(lead + (4, 4))
+    if not need.any():
+        return {"T": skip_T, "inliers": skip["inliers"]}
+    idx = upload(np.flatnonzero(need.reshape(-1)), valid.device)
+
+    def rows(t, tail):
+        return t.expand(lead + t.shape[t.dim() - tail:]).reshape(
+            (-1,) + t.shape[t.dim() - tail:]).index_select(0, idx)
+
+    keys = _split_keys(rng)
+    if not isinstance(keys, torch.Tensor):  # one host key for every frame
+        keys = upload(np.broadcast_to(keys, lead + keys.shape).astype(np.int64), valid.device)
+    out = pnp_fallback(rows(keys, 2), rows(kp_ref, 2), rows(kp_cur, 2), rows(valid, 1),
+                       rows(depth_ref, 2), rows(flow_fwd, 3), rows(flow_diff, 2),
+                       rows(depth_ref_raw, 2), K if K.dim() == 2 else rows(K, 2),
+                       K_inv if K_inv.dim() == 2 else rows(K_inv, 2), tcfg)
+
+    def put(base, sub, tail):
+        flat = base.reshape((-1,) + base.shape[base.dim() - tail:]).clone()
+        return flat.index_copy(0, idx, sub).reshape(base.shape)
+
+    return {"T": put(skip_T, out["T"], 2),
+            "inliers": put(skip["inliers"], out["inliers"], 1)}
 
 
 def tracking_step_chunk(keys, flow_fwd, flow_diff, depth_cur_raw, depth_ref_raw, K, K_inv,

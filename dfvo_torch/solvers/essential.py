@@ -16,7 +16,7 @@ import torch
 
 from ..geometry.lie import skew, so3_exp
 from ..utils.precision import highp
-from .linalg import essential_uv_closed, nullspace_vector, spd_solve_small
+from .linalg import batch_matrix, essential_uv_closed, nullspace_vector, spd_solve_small
 from .ransac import pick, sample_points
 
 
@@ -25,8 +25,10 @@ def _homogeneous(kp):
 
 
 def _normalize(kp, K_inv):
-    """Pixels [... x 2] -> homogeneous normalised camera coordinates."""
-    return _homogeneous(kp) @ K_inv.T
+    """Pixels [... x 2] -> homogeneous normalised camera coordinates;
+    ``K_inv`` is [3 x 3] or has the keypoints' leading frame axes."""
+    ph = _homogeneous(kp)
+    return ph @ batch_matrix(K_inv, ph).mT
 
 
 def _project_to_essential(E):
@@ -236,7 +238,8 @@ def find_essential_ransac(
         rng: PRNG key (two uint32 words), or [... x 2] key words per frame.
         kp1, kp2: [... x N x 2] pixel correspondences (cur, ref), with
             optional leading frame axes.
-        K, K_inv: [3 x 3] intrinsics and inverse.
+        K, K_inv: [3 x 3] intrinsics and inverse, or [... x 3 x 3] with
+            the keypoints' leading frame axes (one camera per sequence).
         valid_mask: [... x N] bool.
         threshold: inlier threshold in pixels on the Sampson distance.
         num_hypotheses, num_starts, vote_slices: static sizes; the best
@@ -262,7 +265,8 @@ def find_essential_ransac(
 
     def score(E):
         """(inlier masks, combined scores) of models E [... x S x 3 x 3]."""
-        err = sampson_error(K_inv.T @ E @ K_inv, p1, p2)
+        Kb = batch_matrix(K_inv, E)
+        err = sampson_error(Kb.mT @ E @ Kb, p1, p2)
         mask = (err < thr2) & vm
         rsum = torch.sum(torch.clamp(err, max=thr2) * vmask, dim=-1)
         return mask, torch.sum(mask, dim=-1).to(torch.float32) - rsum / r_norm

@@ -24,6 +24,27 @@ import torch.nn.functional as F
 from ..utils.precision import highp
 
 
+def batch_matrix(M, like):
+    """``M`` [... x r x c] viewed to broadcast against ``like``
+    [... x extra x a x b] whose leading axes are M's: one axis of size 1
+    for each of like's extra axes (per-sequence intrinsics against a
+    hypothesis or start axis). A plain [r x c] matrix is returned as it
+    is."""
+    if M.dim() == 2:
+        return M
+    return M.reshape(M.shape[:-2] + (1,) * (like.dim() - M.dim()) + M.shape[-2:])
+
+
+def batch_entry(M, i, j, like):
+    """Entry (i, j) of ``M`` [... x r x c], shaped to broadcast against
+    ``like`` [... x extra] whose leading axes are M's; a 0-d tensor for a
+    plain [r x c] matrix."""
+    e = M[..., i, j]
+    if M.dim() == 2:
+        return e
+    return e.reshape(e.shape + (1,) * (like.dim() - e.dim()))
+
+
 def det3(M):
     """Determinant of [... x 3 x 3] matrices by cofactor expansion."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]

@@ -17,6 +17,7 @@ import torch
 from ..solvers.essential import find_essential_ransac, recover_pose, two_view_depths
 from ..solvers.gric import calc_gric, fundamental_residual, homography_residual
 from ..solvers.homography import find_homography_ransac
+from ..solvers.linalg import batch_matrix
 from ..solvers.scale import scale_ransac_1d
 from ..utils.precision import highp
 
@@ -41,7 +42,7 @@ def compute_pose_2d2d(
         kp_cur, kp_ref: [... x N x 2] pixel correspondences, with optional
             leading frame axes (the JAX package vmaps over frames).
         valid_mask: [... x N] bool.
-        K, K_inv: intrinsics.
+        K, K_inv: [3 x 3] intrinsics, or [... x 3 x 3] per frame.
         reproj_thre: RANSAC inlier threshold (pixels).
         repeats: RANSAC runs voting on validity (static).
         num_hypotheses: hypotheses per run (static).
@@ -76,7 +77,8 @@ def compute_pose_2d2d(
     # one validity vote per repeat slice, batched over the slices
     per_slice = (..., None)
     if validity_method == "GRIC":
-        F = K_inv.T @ e_out["slice_Es"] @ K_inv
+        Kb = batch_matrix(K_inv, e_out["slice_Es"])
+        F = Kb.mT @ e_out["slice_Es"] @ Kb
         e_res = fundamental_residual(F, kp_cur[..., None, :, :], kp_ref[..., None, :, :],
                                      mask=valid_mask[..., None, :])
         e_grics = calc_gric(e_res, 0.8, nf[per_slice], "EMat", mask=valid_mask[..., None, :])
@@ -134,7 +136,7 @@ def find_scale_from_depth(
         T_ref_to_cur: [... x 4 x 4] relative pose with unit translation.
         depth_cur: [... x H x W] preprocessed CNN depth of the current view
             (zeros = invalid).
-        K_inv: [3 x 3] inverse intrinsics.
+        K_inv: [3 x 3] inverse intrinsics, or [... x 3 x 3] per frame.
 
     Returns:
         dict with ``scale`` (-1 when 10 or fewer ratios are valid) and
@@ -143,7 +145,8 @@ def find_scale_from_depth(
     h, w = depth_cur.shape[-2:]
 
     def norm_h(kp):
-        return torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1) @ K_inv.T
+        ph = torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1)
+        return ph @ batch_matrix(K_inv, ph).mT
 
     _, z_cur = two_view_depths(T_ref_to_cur[..., :3, :3], T_ref_to_cur[..., :3, 3],
                                norm_h(kp_ref), norm_h(kp_cur))

@@ -38,7 +38,7 @@ def compute_pose_3d2d(
         kp_cur: [... x N x 2] matched current-view pixels.
         valid_mask: [... x N] bool.
         depth_ref: [... x H x W] reference-view depth map.
-        K, K_inv: intrinsics.
+        K, K_inv: [3 x 3] intrinsics, or [... x 3 x 3] per frame.
         min_depth, max_depth: accepted depth range.
         reproj_thre: RANSAC reprojection threshold (pixels).
         repeats: RANSAC runs, pooled into one budget (static).

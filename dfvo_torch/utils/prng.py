@@ -9,7 +9,9 @@ a numpy ``uint32[2]`` array, and the functions below reproduce
 ``jax_threefry_partitionable`` layout, the default since JAX 0.5).
 :func:`chunk_keys` derives a whole chunk's split keys at once and
 :func:`step_keys` adds the folded keys of the iterative scale recovery to
-them, for the scan runner to upload with the chunk's images.
+them, for the scan runner to upload with the chunk's images;
+:func:`split_step_keys` does the same for any array of keys (the
+multi-sequence steps' per-sequence keys).
 """
 
 import numpy as np
@@ -77,16 +79,20 @@ def _threefry2x32_np(k0, k1, x0, x1):
 def chunk_keys(seed, ids, num=8):
     """``split(fold_in(PRNGKey(seed), i), num)`` for every frame id ``i``
     of ``ids``, as one uint32 [len(ids) x num x 2] array."""
-    ids = np.asarray(ids, np.uint64) & np.uint64(_MASK)
-    key = PRNGKey(seed)
-    zeros = np.zeros_like(ids)
-    f0, f1 = _threefry2x32_np(np.full_like(ids, key[0]), np.full_like(ids, key[1]), zeros, ids)
-    shape = (len(ids), num)
-    count = np.broadcast_to(np.arange(num, dtype=np.uint64), shape)
-    s0, s1 = _threefry2x32_np(np.broadcast_to(f0[:, None], shape),
-                              np.broadcast_to(f1[:, None], shape), np.zeros(shape, np.uint64),
-                              count)
-    return np.stack([s0, s1], axis=-1).astype(np.uint32)
+    return fold_in_keys(fold_in_many(PRNGKey(seed), np.asarray(ids)), num)
+
+
+def fold_in_many(keys, data):
+    """``fold_in(key, d)`` elementwise: uint32 keys [... x 2] (or one key)
+    and integer data that broadcast against their leading axes; uint32
+    [... x 2]."""
+    keys = np.asarray(keys, np.uint32)
+    data = np.asarray(data, np.uint64) & np.uint64(_MASK)
+    shape = np.broadcast_shapes(keys.shape[:-1], data.shape)
+    f0, f1 = _threefry2x32_np(np.broadcast_to(keys[..., 0], shape),
+                              np.broadcast_to(keys[..., 1], shape), np.zeros(shape, np.uint64),
+                              np.broadcast_to(data, shape))
+    return np.stack([f0, f1], axis=-1).astype(np.uint32)
 
 
 def key_data(key):
@@ -118,6 +124,13 @@ def with_iter_keys(split_keys):
     split_keys = np.asarray(split_keys, np.uint32)
     folded = fold_in_keys(split_keys[..., ITER_SCALE_STAGE, :], ITER_SCALE_ITERS)
     return np.concatenate([split_keys, folded], axis=-2)
+
+
+def split_step_keys(keys):
+    """Every key the tracking step draws from, for raw keys [... x 2] (as
+    the JAX ``tracking_step`` splits its ``rng``): ``split(key, 8)`` and the
+    iterative scale's folded keys, uint32 [... x 13 x 2]."""
+    return with_iter_keys(fold_in_keys(keys, 8))
 
 
 def step_keys(seed, ids):

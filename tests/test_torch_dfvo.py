@@ -200,6 +200,8 @@ def test_cli_writes_trajectory_config_and_scores(tiny_kitti, tmp_path):
         f"gt_pose_dir: {tiny_kitti / 'gt_poses'}, result_dir: {result}}}\n"
         "visualization: {enable: True, save_img: True}\n"
         "tpu: {ransac_hypotheses: 32, dtype: float32}\n"
+        # seeded weights send every frame to PnP: 5 x 20 hypotheses, not 5 x 100
+        "pnp_tracker: {ransac: {iter: 20}}\n"
     )
     vo = run.main(["-d", DEFAULT_CFG, "-c", str(custom), "--no_confirm", "--device", "cpu"])
     assert vo.device.type == "cpu" and vo.loader in ("native", "cv2-thread")

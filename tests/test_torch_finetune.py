@@ -579,6 +579,7 @@ def test_scan_execution_finetunes_and_saves_the_model(tiny_kitti, tmp_path):
         f"gt_pose_dir: {tiny_kitti / 'gt_poses'}, result_dir: {result}}}\n"
         "visualization: {enable: False, save_img: False}\n"
         "tpu: {ransac_hypotheses: 32, dtype: float32, execution: scan, scan_chunk: 3}\n"
+        "pnp_tracker: {ransac: {iter: 20}}\n"  # PnP on every frame: 5 x 20 hypotheses
         "online_finetune: {enable: True, save_model: True, num_frames: 4, "
         "flow: {enable: True, scales: [1]}, depth: {enable: True, scales: [0]}}\n")
     vo = run.main(["-d", DEFAULT_CFG, "-c", str(custom), "--no_confirm", "--device", "cpu"])
@@ -608,6 +609,7 @@ def test_scan_inference_runs_on_the_previous_chunks_weights(tiny_kitti, tmp_path
     for finetune in (False, True):
         cfg = _frame_cfg(TConfigLoader, tiny_kitti, tmp_path / str(finetune))
         cfg.tpu.execution, cfg.tpu.scan_chunk = "scan", 4
+        cfg.pnp_tracker.ransac.iter = 20  # PnP on every frame: 5 x 20 hypotheses
         if finetune:
             _ft_cfg(cfg)
         runs[finetune] = TDFVO(cfg, device="cpu")
@@ -635,14 +637,16 @@ def test_finetuner_refuses_pose_sources_it_cannot_serve(pose_src, error, match):
 
 
 def test_hd3_finetuning_and_the_multi_sequence_step_name_their_items(tiny_kitti, tmp_path):
-    """HD3 flow finetuning builds (tests/test_torch_hd3_pipeline.py runs it);
-    the multi-sequence step still names its ROADMAP item."""
+    """HD3 flow finetuning builds (tests/test_torch_hd3_pipeline.py runs it),
+    and so does the multi-sequence step, ported since
+    (tests/test_torch_multiseq.py holds it to the JAX package): a step other
+    than the single-pair one."""
     cfg = _ft_cfg(_frame_cfg(TConfigLoader, tiny_kitti, tmp_path))
     cfg.deep_flow.network = "hd3"
     ft = TFinetuner(TDeepFrontend(cfg, "cpu"), cfg)
     assert ft.frontend.flow_kind == "hd3" and ft.train_flow
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ft.make_update_fn(axis_name="seq")
+    assert callable(ft.make_update_fn(axis_name="seq"))
+    assert ft.make_update_fn(axis_name="seq") is not ft.update
 
 
 @pytest.mark.parametrize("name", [
@@ -662,7 +666,8 @@ def test_shipped_finetuning_configurations(tiny_kitti, tmp_path, name):
         f"directory: {{img_seq_dir: {tiny_kitti / 'odom_data'}, "
         f"gt_pose_dir: {tiny_kitti / 'gt_poses'}, result_dir: {tmp_path / 'result'}}}\n"
         "visualization: {enable: False}\n"
-        "tpu: {ransac_hypotheses: 32, dtype: float32}\n")
+        "tpu: {ransac_hypotheses: 32, dtype: float32}\n"
+        "pnp_tracker: {ransac: {iter: 20}}\n")  # PnP on every frame: 5 x 20 hypotheses
     cfg = TConfigLoader().merge_cfg(
         [DEFAULT_CFG, os.path.join(REPO, "options/examples", f"{name}.yml"), str(custom)])
     vo = TDFVO(cfg, device="cpu")

@@ -472,13 +472,20 @@ def test_dfvo_defaults_to_cuda_and_raises_without_it(layouts, monkeypatch):
 
 
 def test_state_checkpoints_name_their_item(tmp_path):
+    """The state checkpoints are ported (tests/test_torch_resume.py); as in
+    the JAX package, a run that left no reference frame (the scan
+    execution) has nothing to save, and a missing checkpoint does not
+    load."""
+    from dfvo_torch.geometry.camera import SE3
     from dfvo_torch.pipeline.dfvo import DFVO
 
     vo = object.__new__(DFVO)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vo.save_state(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vo.load_state(str(tmp_path))
+    vo.global_poses, vo.tracking_stage, vo.prev_scale = {0: SE3(), 1: SE3()}, 2, 1.0
+    vo.ref_data, vo.variables = {}, {}
+    with pytest.raises(KeyError, match="motion"):
+        vo.save_state(str(tmp_path / "state"))
+    with pytest.raises(FileNotFoundError):
+        vo.load_state(str(tmp_path / "missing"))
 
 
 def test_gt_depth_never_runs_the_depth_net(layouts, tmp_path):

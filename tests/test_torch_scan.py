@@ -234,7 +234,9 @@ def test_scan_runner_run_tracks_frames(weights):
     rotation blocks on SO(3), and the chunk steps' relative poses chained
     in order."""
     frames = np.random.RandomState(0).randint(0, 255, (6, H, W, 3), dtype=np.uint8)
-    runner = T_scan.ScanRunner(_scan_cfg(TConfigLoader), device="cpu")
+    cfg = _scan_cfg(TConfigLoader)
+    cfg.pnp_tracker.ransac.iter = 20  # every frame goes to PnP: 5 x 20 hypotheses
+    runner = T_scan.ScanRunner(cfg, device="cpu")
     poses = runner.run(weights[1], frames, K, K_inv)
     assert sorted(poses) == list(range(6))
     np.testing.assert_allclose(poses[0], np.eye(4))
@@ -357,6 +359,8 @@ def test_cli_scan_execution_writes_trajectory(kitti_offset, tmp_path):
         f"gt_pose_dir: {kitti_offset / 'gt_poses'}, result_dir: {result}}}\n"
         "visualization: {enable: True, save_img: False}\n"
         "tpu: {ransac_hypotheses: 32, dtype: float32, execution: scan, scan_chunk: 4}\n"
+        # seeded weights send every frame to PnP: 5 x 20 hypotheses, not 5 x 100
+        "pnp_tracker: {ransac: {iter: 20}}\n"
     )
     vo = run.main(["-d", DEFAULT_CFG, "-c", str(custom), "--no_confirm", "--device", "cpu"])
     assert vo.tracking_stage == N_FRAMES
