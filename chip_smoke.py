@@ -396,6 +396,8 @@ class Checker:
         # bf16, main-path variant; HD3's D = 4 cost volume on its own
         self.max_abs_err = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
         self.max_abs_err_f32 = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
+        # (kernel, label) -> (float32 max abs err, bf16 max abs err)
+        self.errs = {}
 
     def randn(self, shape, scale=1.0):
         a = self.rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
@@ -447,6 +449,7 @@ class Checker:
             if ran != want:
                 fail(f"{kernel} {label} bfloat16 ran {ran}, not {want}")
             self.max_abs_err[record] = max(self.max_abs_err[record], abs_err.max().item())
+        self.errs[kernel, label] = (err, abs_err.max().item())
         print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok ({ran}, "
               f"max abs err {abs_err.max().item():.2e})", flush=True)
 
@@ -894,11 +897,14 @@ def bound(nbytes, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing_cases(chk, shapes=(CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS)):
+def timing_cases(chk, shapes=(CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS),
+                 batches=((64, 1, (6, 5, 4, 3, 2)), (2, 0, (2,))), depth_n=32):
     """Every kernel at every main-path shape of one `infer_chunk` network
     call (N = 64 LiteFlowNet, N = 32 depth), with its launches in that call,
     and level 2 at N = 2 (`infer`, not in the per-call sums). Inputs in
-    bf16, laid out as the path gives them."""
+    bf16, laid out as the path gives them. ``batches`` holds (LiteFlowNet's
+    N, calls per network call, levels); the first entry also times the
+    disparity heads, at N = ``depth_n``."""
     corr_shapes, reg_shapes, lfn_heads, depth_heads = shapes
     from dfvo_torch.ops.correlation import correlation_plain
     from dfvo_torch.ops.headconv import head_conv_cuda, head_conv_plain
@@ -907,7 +913,7 @@ def timing_cases(chk, shapes=(CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS)):
 
     bf = torch.bfloat16
     cases = []
-    for n, per_call, levels in ((64, 1, (6, 5, 4, 3, 2)), (2, 0, (2,))):
+    for n, per_call, levels in batches:
         for lvl, (h, w, c) in corr_shapes:
             if lvl not in levels:
                 continue
@@ -944,10 +950,10 @@ def timing_cases(chk, shapes=(CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS)):
                             n * h * w * (11 * kk + 6), PEAK_F32)))
         heads = [(name, hwc, cout, k, pre, 2 * per_call) for name, hwc, cout, k, pre in lfn_heads
                  if int(name.split("L")[1]) in levels]
-        if n == 64:
+        if n == batches[0][0]:
             heads += [(name, hwc, cout, k, pre, 1) for name, hwc, cout, k, pre in depth_heads]
         for name, (h, w, cin), cout, k, pre, calls in heads:
-            nn_ = 32 if name.startswith("dispconv") else n
+            nn_ = depth_n if name.startswith("dispconv") else n
             x = chk.randn((nn_, h, w, cin)).to(bf)
             w_oihw = chk.randn((cout, cin, k, k), 1.0 / math.sqrt(k * k * cin)).to(bf)
             kern = w_oihw.permute(2, 3, 1, 0)
@@ -1675,7 +1681,8 @@ def resume_check(data, root):
     if ref_id != RESUME_AT:
         fail(f"resume: load_state gave ref_id {ref_id}, expected {RESUME_AT}")
     resumed.main(start_frame=ref_id + 1, num_frames=RESUME_FRAMES - RESUME_AT - 1)
-    if sorted(resumed.global_poses) != sorted(straight.global_poses) != list(range(RESUME_FRAMES)):
+    if not (sorted(resumed.global_poses) == sorted(straight.global_poses)
+            == list(range(RESUME_FRAMES))):
         fail(f"resume: frames {sorted(resumed.global_poses)} against "
              f"{sorted(straight.global_poses)}")
     worst = max(float(np.abs(resumed.global_poses[i].pose - straight.global_poses[i].pose).max())
@@ -1971,18 +1978,19 @@ def scan_phase(seed, out_dir):
     }
 
 
-def ft_cases(chk):
+def ft_cases(chk, n=2, depth=True):
     """Every kernel at every shape of one finetuning update (192x640, float32;
-    LiteFlowNet N = 2, depth N = 1): (kernel, label, Function, plain version,
-    kernel wrapper, tensor inputs, other arguments, calls per update, forward
-    bound, backward bound, library forward, library backward)."""
+    LiteFlowNet N = ``n``, depth N = 1 where ``depth``): (kernel, label,
+    Function, plain version, kernel wrapper, tensor inputs, other arguments,
+    calls per update, forward bound, backward bound, library forward,
+    library backward)."""
     from dfvo_torch.ops.correlation import CorrelationFunction, correlation_plain
     from dfvo_torch.ops.headconv import HeadConvFunction, head_conv_cuda, head_conv_plain
     from dfvo_torch.ops.pallas_corr import correlation_cuda
     from dfvo_torch.ops.regfilter import (RegDistFilterFunction, reg_dist_filter_cuda,
                                           reg_dist_filter_plain)
 
-    n, cases = 2, []
+    cases = []
     for lvl, (h, w, c) in CORR_SHAPES:
         # levels 3 and 2 read the stride-2 view of the level's features
         f1 = chk.randn((n, 2 * h, 2 * w, c))[:, ::2, ::2] if lvl <= 3 else chk.randn((n, h, w, c))
@@ -2009,7 +2017,8 @@ def ft_cases(chk):
                       # each input; the VJP counted as twice the forward's work
                       bound(2 * io, 2 * ops, PEAK_F32), None, None))
     heads = [(name, (n, *hwc), cout, k, pre, 2) for name, hwc, cout, k, pre in LFN_HEADS]
-    heads += [(name, (1, *hwc), cout, k, pre, 1) for name, hwc, cout, k, pre in DEPTH_HEADS]
+    heads += [(name, (1, *hwc), cout, k, pre, 1) for name, hwc, cout, k, pre in DEPTH_HEADS
+              if depth]
     for name, (nn_, h, w, cin), cout, k, pre, calls in heads:
         x = chk.randn((nn_, h, w, cin))
         w_oihw = chk.randn((cout, cin, k, k), 1.0 / math.sqrt(k * k * cin))
@@ -3536,9 +3545,35 @@ def ms_times(data, root, out_dir, single_frame_ms):
     return out
 
 
+def ms_kernels(chk):
+    """Each kernel against its plain version at the batched frame step's
+    shapes (LiteFlowNet at N = 2S = 22, the disparity heads at N = S = 11;
+    float32, then bf16 on the main-path variant), each kernel's Function at
+    the sequence-averaged update's N = 2 * MS_PARITY_S (float32, output and
+    input gradients against the plain version's autograd), and the kernels'
+    times per network call of the batched frame step. The chunk step runs
+    the scan phase's N = 64 / 32, which the kernels phase checks."""
+    s = len(MS_SEQS)
+    check_main_path_shapes(chk, (CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS),
+                           lfn_batches=(2 * s,), depth_batches=(s,), suffix=" multiseq")
+    errs = {k: {"f32": 0.0, "bf16": 0.0} for k in PER_CALL}
+    for (kernel, label), (e32, e16) in chk.errs.items():
+        if "multiseq" in label:
+            errs[kernel]["f32"] = max(errs[kernel]["f32"], e32)
+            errs[kernel]["bf16"] = max(errs[kernel]["bf16"], e16)
+    update = ft_kernel_checks(ft_cases(chk, n=2 * MS_PARITY_S, depth=False))
+    rows, sums = kernel_times(timing_cases(chk, batches=((2 * s, 1, (6, 5, 4, 3, 2)),),
+                                           depth_n=s),
+                              per=f"batched frame step network call (S = {s})")
+    return {"max_abs_err": errs,
+            "update_f32_err": {k: {"out": v[0], "input_grads": v[1]} for k, v in update.items()},
+            "kernel_rows": rows, "kernel_sums": sums}
+
+
 @phase("multiseq")
-def multiseq_phase(seed, out_dir, single_frame_ms):
-    """Multi-sequence runs on the card: the run_multiseq CLI over the 11
+def multiseq_phase(chk, seed, out_dir, single_frame_ms):
+    """Multi-sequence runs on the card: each kernel at the batched steps'
+    batch sizes against its plain version; the run_multiseq CLI over the 11
     KITTI-scored sequences in both executions; the batched step in float32
     against the CPU; one sequence-averaged update against the CPU; the
     times of the batched steps."""
@@ -3558,6 +3593,8 @@ def multiseq_phase(seed, out_dir, single_frame_ms):
         t0 = time.perf_counter()
 
     lap("write")
+    kernels = ms_kernels(chk)
+    lap("kernels")
     cli = {}
     for ex, frames in (("frame", MS_FRAMES), ("scan", MS_SCAN_FRAMES)):
         cli[ex] = ms_cli(seed, root, data, ex, frames)
@@ -3569,8 +3606,8 @@ def multiseq_phase(seed, out_dir, single_frame_ms):
     times = ms_times(data, root, out_dir, single_frame_ms)
     lap("times")
     print("  seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
-    return {"cli": cli, "step_card_vs_cpu": parity, "update": update, "times": times,
-            "seconds_by_part": parts}
+    return {"kernels": kernels, "cli": cli, "step_card_vs_cpu": parity, "update": update,
+            "times": times, "seconds_by_part": parts}
 
 
 def hd3_summary(hd3, smi):
@@ -3627,7 +3664,7 @@ def main():
     finetune = finetune_phase(chk, SEED, out_dir)
     extend = extend_phase(chk, SEED, out_dir)
     hd3 = hd3_phase(chk, SEED, out_dir)
-    multiseq = multiseq_phase(SEED, out_dir, tracking["frame_step"]["ms_per_frame"])
+    multiseq = multiseq_phase(chk, SEED, out_dir, tracking["frame_step"]["ms_per_frame"])
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -3653,6 +3690,12 @@ def main():
          "launches_multiseq": {ex: multiseq["cli"][ex]["launches_by_batch"][name]
                                for ex in ("frame", "scan")},
          "launches_multiseq_update": multiseq["update"]["launches_by_batch"][name],
+         "at_multiseq_s11": {
+             "max_abs_err": multiseq["kernels"]["max_abs_err"][name]["bf16"],
+             "update_f32_err": multiseq["kernels"]["update_f32_err"][name],
+             **{k: multiseq["kernels"]["kernel_sums"][name][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "launches_per_call")}},
          "at_370x1226": {k: extend["kernel_sums"][name][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")}}
         for name, (src, rep) in sources.items()
@@ -3722,7 +3765,9 @@ def main():
         "nvidia_smi": smi}}))
     print(json.dumps({"extend": ext_summary(extend, smi)}))
     print(json.dumps({"hd3": hd3_summary(hd3, smi)}))
-    print(json.dumps({"multiseq": {**multiseq, "nvidia_smi": smi}}))
+    print(json.dumps({"multiseq": {
+        **multiseq, "nvidia_smi": smi,
+        "kernels": {k: v for k, v in multiseq["kernels"].items() if k != "kernel_rows"}}}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

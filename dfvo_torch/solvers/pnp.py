@@ -90,33 +90,12 @@ def pnp_from_sample_planar(X, x_norm):
     return R, t_p - (R @ m[..., None])[..., 0]
 
 
-# candidate poses per block of the CPU's reprojection errors (see below)
-_CPU_BLOCK = 32
-
-
 @highp
 def _reproj_err_sq(R, t, X, x_pix, K):
     """Squared pixel reprojection errors [... x N] of object points
     [... x N x 3] under poses (R [... x 3 x 3], t [... x 3]; the points'
     leading axes broadcast against R's) and intrinsics [3 x 3] or with the
-    points' leading frame axes; points behind the camera get +inf.
-
-    On the CPU, poses along a candidate axis (R [... x C x 3 x 3] against
-    points [... x 1 x N x 3]) are scored in blocks of ``_CPU_BLOCK``, so
-    that each elementwise op's operands stay in the cache: the same ops in
-    the same order, so the same values, about 2.7x sooner at C = 3000,
-    N = 2000. On the card every op runs once over all candidates."""
-    c = R.shape[-3] if R.dim() > 2 else 1
-    if (R.device.type == "cpu" and c > _CPU_BLOCK and X.dim() > 2 and X.shape[-3] == 1
-            and t.dim() > 1):
-        return torch.cat([_reproj_err_sq_block(R[..., i:i + _CPU_BLOCK, :, :],
-                                               t[..., i:i + _CPU_BLOCK, :], X, x_pix, K)
-                          for i in range(0, c, _CPU_BLOCK)], dim=-2)
-    return _reproj_err_sq_block(R, t, X, x_pix, K)
-
-
-def _reproj_err_sq_block(R, t, X, x_pix, K):
-    """:func:`_reproj_err_sq` in one pass."""
+    points' leading frame axes; points behind the camera get +inf."""
     X0, X1, X2 = X[..., 0], X[..., 1], X[..., 2]
     r = [[R[..., a, b, None] for b in range(3)] for a in range(3)]
     tb = [t[..., a, None] for a in range(3)]

@@ -666,8 +666,7 @@ def test_shipped_finetuning_configurations(tiny_kitti, tmp_path, name):
         f"directory: {{img_seq_dir: {tiny_kitti / 'odom_data'}, "
         f"gt_pose_dir: {tiny_kitti / 'gt_poses'}, result_dir: {tmp_path / 'result'}}}\n"
         "visualization: {enable: False}\n"
-        "tpu: {ransac_hypotheses: 32, dtype: float32}\n"
-        "pnp_tracker: {ransac: {iter: 20}}\n")  # PnP on every frame: 5 x 20 hypotheses
+        "tpu: {ransac_hypotheses: 32, dtype: float32}\n")
     cfg = TConfigLoader().merge_cfg(
         [DEFAULT_CFG, os.path.join(REPO, "options/examples", f"{name}.yml"), str(custom)])
     vo = TDFVO(cfg, device="cpu")

@@ -188,8 +188,6 @@ def test_shipped_tracking_configurations_run(short_kitti, tmp_path, name, execut
         "visualization": {"enable": False},
         "tpu": {"ransac_hypotheses": 32, "dtype": "float32", "execution": execution,
                 "scan_chunk": 2},
-        # seeded weights send frames to PnP: 20 hypotheses a repeat, not 100
-        "pnp_tracker": {"ransac": {"iter": 20}},
     }
     for key, value in overrides.items():
         custom[key] = {**custom.get(key, {}), **value} if isinstance(value, dict) else value

@@ -2,13 +2,22 @@
 port's single-sequence calls, on the CPU.
 
 * The three steps of ``dfvo_torch.parallel.MultiSeqRunner`` against the
-  JAX package's ``MultiSeqRunner`` on a 4-device ``make_seq_mesh`` mesh, at
-  tests/test_multiseq.py's configuration (64x96, 32 hypotheses, flow
-  finetuning at scale 1) in float32 (the JAX suite runs it in bfloat16,
-  where the two packages' depths differ by 1e-2 and random-weight poses by
-  their whole size), with S = 4 sequences, each with its own intrinsics
-  and keys. Weights: tests/test_torch_models.py ``seeded_flax_variables``
-  (no JAX initialisation is compiled).
+  JAX package, S = 3 sequences in float32 at 64x96, each with its own
+  intrinsics and keys. The JAX ``MultiSeqRunner`` (dfvo_tpu/parallel/
+  multiseq.py) maps the single-sequence programs over a mesh of one
+  sequence per device: ``infer`` then ``tracking_step`` per sequence (its
+  vmap turns PnP's ``lax.cond`` into a select of the same values); the
+  scan runner's chunk step per sequence; the finetuning loss's
+  ``value_and_grad`` per pair, ``pmean`` over the pairs and one Adam step.
+  The reference runs those same JAX programs per sequence, as the port's
+  frame-, scan- and finetuning-parity tests compile them
+  (tests/test_torch_dfvo.py ``split_jax_step``,
+  tests/test_torch_scan.py::test_dfvo_scan_main_matches_jax,
+  tests/test_torch_finetune.py::test_update_and_frame_loop_match_jax: the
+  same configurations, so the persistent compilation cache serves them),
+  and averages the gradients as ``pmean`` does. Weights:
+  tests/test_torch_models.py ``seeded_flax_variables`` (no JAX
+  initialisation is compiled).
 * The batched ``DeepFrontend.infer`` at S = 3 against three single-pair
   calls, and the geometry with [S x 3 x 3] intrinsics against S calls at
   [3 x 3].
@@ -27,7 +36,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from dfvo_torch.models import convert as bridge
+from dfvo_torch.datasets import datasets as t_datasets
 from dfvo_torch.parallel import MultiSeqRunner as TRunner
 from dfvo_torch.pipeline import tracking as T_tr
 from dfvo_torch.pipeline.frontend import DeepFrontend as TDeepFrontend
@@ -36,30 +45,19 @@ from dfvo_torch.synth.oracle import make_oracle_sequence
 from dfvo_torch.utils import ConfigLoader as TConfigLoader
 from dfvo_torch.utils import prng
 from dfvo_tpu.utils import ConfigLoader
-from tests.test_torch_models import _perturb, seeded_flax_variables
+from tests.test_torch_dfvo import _frame_cfg, jax_infer, tiny_kitti  # noqa: F401
+from tests.test_torch_finetune import (B1, LR, _ft_cfg, _jax_variables, _port_tree,
+                                       _port_variables, _rel_err)
+from tests.test_torch_scan import _cli_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CFG = os.path.join(REPO, "options/examples/default_configuration.yml")
-H, W, S, T = 64, 96, 4, 2
-LR = 1e-5  # online_finetune.lr of the default configuration
+H, W, S = 64, 96, 3
+T = 3  # the scan parity test's chunk (tests/test_torch_scan.py ``_scan_cfg``)
 
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _cfg(loader):
-    """tests/test_multiseq.py's runner configuration, in float32."""
-    cfg = loader().merge_cfg([DEFAULT_CFG])
-    cfg.image.height, cfg.image.width = H, W
-    cfg.tpu.ransac_hypotheses = 32
-    cfg.tpu.dtype = "float32"
-    cfg.tpu.scan_chunk = T
-    cfg.online_finetune.enable = True
-    cfg.online_finetune.flow.enable = True
-    cfg.online_finetune.flow.scales = [1]
-    cfg.online_finetune.depth.enable = False
-    return cfg
 
 
 def _intrinsics(s):
@@ -70,19 +68,12 @@ def _intrinsics(s):
 
 
 @pytest.fixture(scope="module")
-def both():
-    """Both runners, the seeded weights (the flow heads x10, so the
-    network's flows and the poses they give are far above the
-    tolerances) and S sequences' inputs."""
-    from dfvo_tpu.parallel import MultiSeqRunner, make_seq_mesh
-
-    jvars = seeded_flax_variables(0)
-    jvars["flow"] = _perturb(jvars["flow"], np.random.RandomState(0), head_scale=10.0)
-    jvars = jax.tree.map(jnp.asarray, jvars)
-    tvars = {"depth": bridge.monodepth2_depth_from_flax(jvars["depth"]),
-             "flow": bridge.liteflownet_from_flax(jvars["flow"])}
-    jrun = MultiSeqRunner(_cfg(ConfigLoader), mesh=make_seq_mesh(jax.devices()[:4]))
-    trun = TRunner(_cfg(TConfigLoader), device="cpu")
+def inputs():
+    """The weights of tests/test_torch_dfvo.py::test_dfvo_main_matches_jax
+    (flow biases redrawn, the flow heads x10, so the flows and the poses
+    they give lie far above the tolerances) in both packages, and S
+    sequences' frames, reference depths and cameras."""
+    jvars = jax.tree.map(jnp.asarray, _jax_variables())
     rng = np.random.RandomState(0)
     K = np.stack([_intrinsics(s) for s in range(S)])
     data = {
@@ -91,38 +82,60 @@ def both():
         "depth_ref": rng.uniform(1, 40, (S, H, W)).astype(np.float32),
         "K": K, "K_inv": np.linalg.inv(K).astype(np.float32),
     }
-    return jrun, jvars, trun, tvars, data
+    return jvars, _port_variables(jvars), data
 
 
-def test_vo_step_matches_jax(both):
+def test_vo_step_matches_jax(inputs, tmp_path):
     """One batched VO step of S sequences, each with its own intrinsics and
-    its raw key ``fold_in(PRNGKey(0), s)``: modes equal, poses within 1e-5
+    its raw key ``fold_in(PRNGKey(0), s)``, against each sequence's JAX
+    ``infer`` and ``tracking_step`` (no ``prev_scale``: 1.0, as the JAX
+    step passes none; the rigid-flow map on, an extra output, as the
+    frame-parity test's program has it): modes equal, poses within 1e-5
     and depths within relative 1e-4 (the frame-step parity of
     tests/test_torch_frontend.py), the motion far above that."""
-    jrun, jvars, trun, tvars, d = both
+    from dfvo_tpu.pipeline.frontend import DeepFrontend as JDeepFrontend
+    from dfvo_tpu.pipeline.tracking import TrackingConfig, tracking_step
+
+    jvars, tvars, d = inputs
+    jcfg = _frame_cfg(ConfigLoader, tmp_path, tmp_path / "jax")
+    jfe = JDeepFrontend(jcfg)
+    tcfg = dataclasses.replace(TrackingConfig.from_cfg(jcfg), want_rigid_flow_diff=True)
+    infer, pv = jax_infer(jfe), jfe.prepare_variables(jvars)
     keys = prng.fold_in_many(prng.PRNGKey(0), np.arange(S))
     eye = np.broadcast_to(np.eye(4, dtype=np.float32), (S, 4, 4))
-    jp, jm, jd = jrun.make_vo_step()(
-        jvars, jnp.asarray(d["imgs"][:, 0]), jnp.asarray(d["img_ref"]),
-        jnp.asarray(d["depth_ref"]), jnp.asarray(eye), jnp.asarray(keys), jnp.asarray(d["K"]),
-        jnp.asarray(d["K_inv"]))
+    jp, jm, jd = [], [], []
+    for s in range(S):
+        fo = infer(pv, jnp.asarray(d["imgs"][s, 0]).astype(jnp.float32) / 255.0,
+                   jnp.asarray(d["img_ref"][s]).astype(jnp.float32) / 255.0)
+        tr = tracking_step(jnp.asarray(keys[s]), fo["flow_fwd"], fo["flow_diff"],
+                           fo["depth_cur"], jnp.asarray(d["depth_ref"][s]), jnp.asarray(eye[s]),
+                           jnp.asarray(d["K"][s]), jnp.asarray(d["K_inv"][s]), tcfg,
+                           prev_scale=jnp.asarray(1.0, jnp.float32))
+        jp.append(np.asarray(tr["pose"]))
+        jm.append(int(tr["mode"]))
+        jd.append(np.asarray(fo["depth_cur"]))
+    trun = TRunner(_frame_cfg(TConfigLoader, tmp_path, tmp_path / "torch"), device="cpu")
     tp, tm, td = trun.make_vo_step()(
         trun.frontend.prepare_variables(tvars), _t(d["imgs"][:, 0]), _t(d["img_ref"]),
         _t(d["depth_ref"]), _t(eye), keys, _t(d["K"]), _t(d["K_inv"]))
-    jp, jm, jd = np.asarray(jp), np.asarray(jm), np.asarray(jd)
-    assert tm.tolist() == jm.tolist()
+    jp = np.stack(jp)
+    assert tm.tolist() == jm
     assert np.abs(jp[:, :3, 3]).max() >= 100 * 1e-5
     np.testing.assert_allclose(tp.numpy(), jp, atol=1e-5)
-    np.testing.assert_allclose(td.numpy(), jd, rtol=1e-4)
+    np.testing.assert_allclose(td.numpy(), np.stack(jd), rtol=1e-4)
 
 
-def test_chunk_step_matches_jax(both):
-    """One chunk of T = 2 frames of S sequences: the raw keys
+def test_chunk_step_matches_jax(inputs, tmp_path):
+    """One chunk of T = 3 frames of S sequences: the raw keys
     ``fold_in(fold_in(PRNGKey(0), i), s)`` [S x T x 2] of the JAX CLI, each
-    sequence's intrinsics and carry. Modes equal, poses and the carried
-    motion within 1e-5, the carried depth within relative 1e-4 (the chunk
-    parity of tests/test_torch_scan.py), the carried scale equal."""
-    jrun, jvars, trun, tvars, d = both
+    sequence's intrinsics and carry, against each sequence's JAX chunk step
+    (the scan runner's, one sequence per device in the JAX
+    ``MultiSeqRunner``). Modes equal, poses and the carried motion within
+    1e-5, the carried depth within relative 1e-4 (the chunk parity of
+    tests/test_torch_scan.py), the carried scale within relative 1e-5."""
+    from dfvo_tpu.pipeline.scan_runner import ScanRunner as JScanRunner
+
+    jvars, tvars, d = inputs
     base = prng.PRNGKey(0)
     keys = prng.fold_in_many(prng.fold_in_many(base, np.arange(1, T + 1))[None],
                              np.arange(S)[:, None])
@@ -130,66 +143,101 @@ def test_chunk_step_matches_jax(both):
         lambda s: jax.random.fold_in(jax.random.fold_in(jnp.asarray(base), i), s))(
             jnp.arange(S, dtype=jnp.uint32)))(jnp.arange(1, T + 1)).swapaxes(0, 1)
     np.testing.assert_array_equal(np.asarray(jkeys), keys)
+    jscan = JScanRunner(_cli_cfg(ConfigLoader, tmp_path, tmp_path / "jax", "scan"))
+    assert jscan.chunk == T
+    pv = jscan.frontend.prepare_variables(jvars)
+    jp, jm, jc = [], [], []
+    for s in range(S):
+        p, m, c = jscan._chunk_step(
+            pv, jnp.asarray(d["imgs"][s]),
+            (jnp.asarray(d["img_ref"][s]), jnp.asarray(d["depth_ref"][s]),
+             jnp.eye(4, dtype=jnp.float32), jnp.asarray(1.0, jnp.float32)),
+            jkeys[s], jnp.asarray(d["K"][s]), jnp.asarray(d["K_inv"][s]))
+        jp.append(np.asarray(p))
+        jm.append(np.asarray(m))
+        jc.append([np.asarray(x) for x in c])
+    jp, jm = np.stack(jp), np.stack(jm)
+    jc = [np.stack([c[i] for c in jc]) for i in range(4)]
+    trun = TRunner(_cli_cfg(TConfigLoader, tmp_path, tmp_path / "torch", "scan"), device="cpu")
     eye = np.broadcast_to(np.eye(4, dtype=np.float32), (S, 4, 4))
-    jp, jm, jc = jrun.make_chunk_step()(
-        jrun.frontend.prepare_variables(jvars), jnp.asarray(d["imgs"]),
-        (jnp.asarray(d["img_ref"]), jnp.asarray(d["depth_ref"]), jnp.asarray(eye),
-         jnp.ones(S, jnp.float32)), jkeys, jnp.asarray(d["K"]), jnp.asarray(d["K_inv"]))
     tp, tm, tc = trun.make_chunk_step()(
         trun.frontend.prepare_variables(tvars), _t(d["imgs"]),
         (_t(d["img_ref"]), _t(d["depth_ref"]), _t(eye), np.ones(S, np.float32)), keys,
         _t(d["K"]), _t(d["K_inv"]))
-    assert tm.tolist() == np.asarray(jm).tolist()
-    assert np.abs(np.asarray(jp)[..., :3, 3]).max() >= 100 * 1e-5
-    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-5)
-    np.testing.assert_array_equal(tc[0].numpy(), np.asarray(jc[0]))
-    np.testing.assert_allclose(tc[1].numpy(), np.asarray(jc[1]), rtol=1e-4)
-    np.testing.assert_allclose(tc[2].numpy(), np.asarray(jc[2]), atol=1e-5)
-    np.testing.assert_allclose(tc[3], np.asarray(jc[3]), rtol=1e-5)
+    assert tm.tolist() == jm.tolist()
+    assert np.abs(jp[..., :3, 3]).max() >= 100 * 1e-5
+    np.testing.assert_allclose(tp.numpy(), jp, atol=1e-5)
+    np.testing.assert_array_equal(tc[0].numpy(), jc[0])
+    np.testing.assert_allclose(tc[1].numpy(), jc[1], rtol=1e-4)
+    np.testing.assert_allclose(tc[2].numpy(), jc[2], atol=1e-5)
+    np.testing.assert_allclose(tc[3], jc[3], rtol=1e-5)
 
 
-def test_train_step_matches_jax(both):
-    """One sequence-averaged Adam step over S pairs (the JAX step's pmean of
-    the per-sequence gradients): the loss within relative 1e-5, every
-    parameter's step within lr of JAX's and all but 1e-3 of them within
-    lr/10 (tests/test_torch_finetune.py's bounds for one step); the depth
-    network untouched. Then the loss and gradient of the batch equal the
-    mean of the S single-pair ones."""
-    jrun, jvars, trun, tvars, d = both
+def test_train_step_matches_jax(inputs, tiny_kitti, tmp_path):
+    """One sequence-averaged Adam step over S pairs with flow and depth
+    finetuning (tests/test_torch_finetune.py's configuration and camera)
+    against the JAX package: its jitted ``update`` per pair gives each
+    pair's loss and gradient (the first Adam moment over 1 - b1), their
+    means are what the JAX step's ``pmean`` gives, and the JAX optimizer
+    takes one step on the mean gradient. The loss within relative 1e-5;
+    each network's gradient, as the port's loss gives it, within
+    tests/test_torch_finetune.py's bounds by norm (flow 1e-4, depth 1e-3);
+    every parameter's step within 2 lr of JAX's and all but 1e-4 of them
+    within lr/10 (1e-3 for the depth network, whose gradient turns on
+    rounding). The port's gradient is its
+    first Adam moment over 1 - b1, as the JAX one."""
+    from dfvo_tpu.pipeline.finetune import OnlineFinetuner as JFinetuner
+    from dfvo_tpu.pipeline.frontend import DeepFrontend as JDeepFrontend
+
+    jvars, tvars, d = inputs
+    jcfg = _ft_cfg(_frame_cfg(ConfigLoader, tiny_kitti, tmp_path / "jax"))
+    tcfg = _ft_cfg(_frame_cfg(TConfigLoader, tiny_kitti, tmp_path / "torch"))
+    cam = t_datasets[tcfg.dataset](tcfg).cam_intrinsics
+    K, K_inv = cam.mat.astype(np.float32), cam.inv_mat.astype(np.float32)
     img_ref = d["img_ref"].astype(np.float32) / 255.0
     img_cur = d["imgs"][:, 0].astype(np.float32) / 255.0
     poses = np.broadcast_to(np.eye(4, dtype=np.float32), (S, 4, 4)).copy()
-    poses[:, 0, 3] = 0.1 * np.arange(1, S + 1)
-    jopt = jrun.finetuner.init_state(jvars, d["K"], d["K_inv"])
-    jnew, _, jloss = jrun.make_train_step()(jvars, jopt, jnp.asarray(img_ref),
-                                            jnp.asarray(img_cur), jnp.asarray(poses))
+    poses[:, 0, 3] = 0.01 * np.arange(1, S + 1)
+    poses[:, 2, 3] = 0.02
 
+    jft = JFinetuner(JDeepFrontend(jcfg), jcfg)
+    jstate = jft.init_state(jvars, K, K_inv)
+    losses, grads = [], []
+    for s in range(S):
+        _, (adam, *_), loss = jft.update(jvars, jstate, jnp.asarray(img_ref[s]),
+                                         jnp.asarray(img_cur[s]), jnp.asarray(poses[s]))
+        losses.append(float(loss))
+        grads.append(jax.tree.map(lambda m: np.asarray(m) / np.float32(1 - B1), adam.mu))
+    j_grad = jax.tree.map(lambda *g: np.mean(np.stack(g), axis=0), *grads)
+    j_step, _ = jax.jit(jft.optimizer.update)(j_grad, jstate, jft._trainable(jvars))
+
+    trun = TRunner(tcfg, device="cpu")
     ft = trun.finetuner
     before = {net: {k: v.clone() for k, v in sd.items()} for net, sd in tvars.items()}
     tnew = {net: {k: v.clone() for k, v in sd.items()} for net, sd in tvars.items()}
-    topt = ft.init_state(tnew, d["K"], d["K_inv"])
+    topt = ft.init_state(tnew, K, K_inv)
+    np.testing.assert_array_equal(ft._K.numpy(), np.asarray(jft._K))
     tnew, topt, tloss = trun.make_train_step()(tnew, topt, _t(img_ref), _t(img_cur), _t(poses))
     assert topt["count"] == 1
-    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
-    j_flow = bridge.liteflownet_from_flax(jnew["flow"])
-    keys = ft.frontend.trainable_keys("flow")
-    step_t = np.concatenate([(tnew["flow"][k] - before["flow"][k]).numpy().ravel() for k in keys])
-    step_j = np.concatenate([(j_flow[k] - before["flow"][k]).numpy().ravel() for k in keys])
-    diff = np.abs(step_t - step_j)
-    assert np.abs(step_j).max() > 0.5 * LR
-    assert diff.max() <= LR
-    assert np.mean(diff <= 0.1 * LR) >= 1 - 1e-3
-    assert all(torch.equal(tnew["depth"][k], before["depth"][k]) for k in before["depth"])
-
-    # the batch's loss and gradient against the mean of the S single pairs
-    loss, grads = ft.value_and_grad(before, _t(img_ref), _t(img_cur), _t(poses))
-    singles = [ft.value_and_grad(before, _t(img_ref[s:s + 1]), _t(img_cur[s:s + 1]),
-                                 _t(poses[s:s + 1])) for s in range(S)]
-    torch.testing.assert_close(loss, torch.stack([x[0] for x in singles]).mean(), rtol=1e-5,
-                               atol=0)
-    for k in keys:
-        mean = torch.stack([x[1]["flow"][k] for x in singles]).mean(0)
-        torch.testing.assert_close(grads["flow"][k], mean, rtol=1e-3, atol=1e-7, msg=k)
+    np.testing.assert_allclose(float(tloss), np.mean(losses), rtol=1e-5)
+    for net in ("flow", "depth"):
+        jg = _port_tree(net, j_grad[net], jvars)
+        js = _port_tree(net, j_step[net], jvars)
+        keys = ft.frontend.trainable_keys(net)
+        assert set(jg) == set(keys)
+        flat = [np.concatenate([topt["mu"][net][k].numpy().ravel() / np.float32(1 - B1)
+                                for k in keys]),
+                np.concatenate([jg[k].ravel() for k in keys])]
+        assert _rel_err(*flat) < (1e-4 if net == "flow" else 1e-3), net
+        step_t = np.concatenate([(tnew[net][k] - before[net][k]).numpy().ravel() for k in keys])
+        step_j = np.concatenate([js[k].ravel() for k in keys])
+        diff = np.abs(step_t - step_j)
+        assert np.abs(step_j).max() > 0.5 * LR, net
+        # Adam's first step is about lr·sign(g): a gradient near zero whose
+        # sign turns on rounding is 2 lr off (tests/test_torch_finetune.py
+        # ``_check_update``; measured here 1.16 lr for one flow element)
+        assert diff.max() <= 2 * LR, net
+        assert np.mean(diff <= 0.1 * LR) >= (1 - 1e-4 if net == "flow" else 1 - 1e-3), net
 
 
 # -- the batched frontend and the per-sequence geometry --------------------------
