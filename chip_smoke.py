@@ -389,10 +389,12 @@ def short_kernel_name(mangled):
 
 
 class Checker:
-    """Holds the numpy generator and the worst errors per kernel."""
+    """Holds the generator of the inputs and the worst errors per kernel.
+    The inputs are drawn on the card: numpy took over a minute for the
+    gigabytes of the shapes at 370x1226."""
 
     def __init__(self, seed):
-        self.rng = np.random.default_rng(seed)
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
         # bf16, main-path variant; HD3's D = 4 cost volume on its own
         self.max_abs_err = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
         self.max_abs_err_f32 = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
@@ -400,12 +402,10 @@ class Checker:
         self.errs = {}
 
     def randn(self, shape, scale=1.0):
-        a = self.rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
-        return torch.from_numpy(a).cuda()
+        return torch.randn(shape, generator=self.gen, device="cuda") * scale
 
     def rand(self, shape, lo=0.0, hi=1.0):
-        a = self.rng.random(shape, dtype=np.float32) * np.float32(hi - lo) + np.float32(lo)
-        return torch.from_numpy(a).cuda()
+        return torch.rand(shape, generator=self.gen, device="cuda") * (hi - lo) + lo
 
     def compare(self, kernel, label, kernel_fn, plain_fn, inputs, prep=None,
                 main_path=True, expect=None, record=None):
@@ -816,17 +816,54 @@ def time_cuda(fn, reps, rounds=5):
 # 15 late in this script, and now and then many more
 # (scripts/profiler_trace_check.py; PERF.md section 6). Each trace
 # therefore opens with spin kernels, which its sums leave out; while no
-# spin kernel reaches the trace the lead-in doubles. The rarer larger
+# spin kernel reaches the trace the lead-in doubles, up to 1,024, and the
+# next trace waits longer (0.5 s, then twice as long each time: a loss
+# of every event has held for six traces in a row). The rarer larger
 # losses are caught by counting (device_ms, profile_call).
 SPIN = "spin_kernel"
+
+
+class DeviceOp:
+    """The device events of one name in a trace: their number and summed
+    time, named as torch.profiler's ``key_averages()`` names them."""
+
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def device_ops(prof):
+    """The device events of a finished trace, summed by name, read from the
+    profiler's raw events. ``prof.key_averages()`` gives the same sums but
+    first builds a tree of every host op, about a millisecond per kernel on
+    the card's host: minutes for the traces of the larger steps. The
+    profile phase holds the two against each other."""
+    from torch.autograd import DeviceType
+
+    raw = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        op = raw.get(e.name()) or raw.setdefault(e.name(), DeviceOp(e.name()))
+        op.count += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            op.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    ops = {}
+    for name, op in raw.items():
+        key = torch._C._demangle(name) if len(name) > 1 else name
+        merged = ops.setdefault(key, DeviceOp(key))
+        merged.count += op.count
+        merged.self_device_time_total += op.self_device_time_total
+    return list(ops.values())
 
 
 def profiled(fn, lead_in=32, **kw):
     """(profile, device events without the lead-in, wall ms) of one
     ``fn()`` under torch.profiler, after ``lead_in`` spin kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    misses = 0
     while True:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
             for _ in range(lead_in):
@@ -836,12 +873,18 @@ def profiled(fn, lead_in=32, **kw):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = device_ops(prof)
         if any(SPIN in e.key for e in events):
             return prof, [e for e in events if SPIN not in e.key], wall_ms
-        if lead_in >= 1024:
-            fail(f"no spin kernel of a lead-in of {lead_in} reached the trace")
-        lead_in *= 2
+        misses += 1
+        held = sum(e.count for e in events)
+        LOST_TRACES.append(("spin lead-in", 1, held, None))
+        print(f"  (no spin kernel of a lead-in of {lead_in} reached the trace; {held} "
+              "device events; traced again)", flush=True)
+        if misses == 8:
+            fail(f"no spin kernel of 8 lead-ins up to {lead_in} reached the trace")
+        lead_in = min(2 * lead_in, 1024)
+        time.sleep(0.25 * 2 ** misses)
 
 
 def trace(fn, calls):
@@ -857,7 +900,8 @@ def trace(fn, calls):
 
 
 # every trace that held another number of device events than its calls
-# launched: (label, calls in the trace, events held, events expected)
+# launched: (label, calls in the trace, events held, events expected;
+# None where no spin kernel of the lead-in reached the trace)
 LOST_TRACES = []
 
 
@@ -1072,6 +1116,18 @@ def profile_phase(fe, variables, imgs, out_dir):
         print(f"  {name}: {len(prologue)} pow/neg/amax/sub/exp ops on [N,H,W,k²] tensors")
         if prologue:
             fail(f"{name}: normalisation ops outside the kernel: {prologue[:5]}")
+        # device_ops against the profiler's own sums of the same trace
+        from torch.autograd import DeviceType
+
+        slow = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and SPIN not in e.key}
+        fast = {e.key: (e.count, e.self_device_time_total) for e in events}
+        if slow.keys() != fast.keys() or any(
+                slow[k][0] != fast[k][0]
+                or not math.isclose(slow[k][1], fast[k][1], rel_tol=1e-9, abs_tol=1e-3 * slow[k][0])
+                for k in slow):
+            fail(f"{name}: device_ops disagrees with key_averages: "
+                 f"{sorted(set(slow.items()) ^ set(fast.items()))[:5]}")
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(f"{name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
                     f"{launches} kernels\n")
