@@ -83,8 +83,8 @@ seconds, none caught:
    plain-VJP backward device ms beside their bounds and, for the head
    conv, cuDNN's conv2d and convolution_backward. Then the CLI with
    ablation_self_flow_online.yml's options plus depth finetuning and
-   save_model, in frame execution over RUN_FRAMES frames and in scan
-   execution over SCAN_FRAMES frames: one update per tracked frame, the
+   save_model, in frame execution over FT_FRAMES frames and in scan
+   execution over FT_SCAN_FRAMES frames: one update per tracked frame, the
    weights moved and the running statistics fixed, finite losses,
    finetuned_model/ written, launches (inference + 5 / 5 / 14 float32
    launches and as many Function backward passes per update) and host
@@ -151,6 +151,23 @@ seconds, none caught:
    and the chunk step over the 11 sequences, beside the single-sequence
    frame_step. The run phase also saves a float32 run after frame 5,
    loads it into a fresh DFVO and continues it, against the straight run.
+17. datasets: the shipped tum_rgbd_slam.yml (480x640, frame_step 5),
+   adelaide_driving.yml (256x832) and oxford_robotcar.yml (256x640) at
+   their own sizes, bf16, seeded weights, the drawer on. Each kernel
+   against its plain version at every shape of each feed, at N = 2 / 1
+   (LiteFlowNet / depth) and for TUM also N = 64 / 32, with the variant
+   each launch took, and their times per network call beside the bounds;
+   the CLI over synthetic sequences in each dataset's layout
+   (dfvo_torch.synth.layouts): TUM in frame execution over 31 frames (6
+   tracked) and in scan execution over 161 frames (one chunk of 32),
+   Adelaide and RobotCar over 8 frames: finite poses, the TUM file's 8
+   columns stamped with the tracked frames' own synchronised timestamps,
+   launches and variants (5 / 5 / 14 per network call, 4 on the first
+   frame), host reads per frame or chunk; TUM's float32 `infer` on the
+   card against the CPU; and the flow export
+   (``python -m dfvo_torch.tools.generate_flow_prediction``) over two
+   375x1242 pairs through a --model checkpoint, its PNGs read back
+   against the port's own flows.
 
 Weights and inputs are drawn from SEED.
 
@@ -158,13 +175,16 @@ It ends with a JSON line of the CLI run (timer means per scope,
 frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
 finetuning, a JSON line of the extend phase, a JSON line of the hd3 phase,
-a JSON line of the multiseq phase, a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
+a JSON line of the multiseq phase, a JSON line of the datasets phase, a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
 own, correlation_d4; launches from the slice phase, from the CLI run as launches_cli, from the
 scan execution as launches_scan, from the finetuning updates of both CLI
 runs as launches_finetune and from the extend phase's two CLI runs as
 launches_extend, from the multiseq phase's two CLI runs and its update by
-batch size as launches_multiseq and launches_multiseq_update; their times at
-370x1226 as at_370x1226),
+batch size as launches_multiseq and launches_multiseq_update, from the
+datasets phase's CLI runs and flow export as launches_datasets and
+launches_flow_export; their times at 370x1226 as at_370x1226 and at the
+datasets phase's feeds as at_tum_480x640, at_adelaide_256x832 and
+at_robotcar_256x640),
 the nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 It exits non-zero, printing no result, when no CUDA device is available
 or any phase fails.
@@ -255,6 +275,10 @@ FT_VARIANT = {"correlation": "cuda_core", "reg_dist_filter": "async_tile",
               "head_conv": "cuda_core"}
 FT_LR = 1e-5
 FT_CHUNK_PAIRS = 8
+# the finetuning CLI runs: 7 updates in frame execution; a full chunk of 32
+# and a padded one of 1 in scan execution
+FT_FRAMES = 8
+FT_SCAN_FRAMES = 1 + 32 + 1
 # one update on the card against the CPU in float32: the loss, each
 # network's gradient by relative norm, and the share of the moving weights
 # whose Adam step (about lr·sign(g)) has the CPU's sign. With TF32 off the
@@ -398,8 +422,9 @@ class Checker:
         # bf16, main-path variant; HD3's D = 4 cost volume on its own
         self.max_abs_err = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
         self.max_abs_err_f32 = {k: 0.0 for k in (*PER_CALL, "correlation_d4")}
-        # (kernel, label) -> (float32 max abs err, bf16 max abs err)
-        self.errs = {}
+        # (kernel, label) -> (float32 max abs err, bf16 max abs err), and
+        # the variant its bf16 launch took
+        self.errs, self.variants = {}, {}
 
     def randn(self, shape, scale=1.0):
         return torch.randn(shape, generator=self.gen, device="cuda") * scale
@@ -450,6 +475,7 @@ class Checker:
                 fail(f"{kernel} {label} bfloat16 ran {ran}, not {want}")
             self.max_abs_err[record] = max(self.max_abs_err[record], abs_err.max().item())
         self.errs[kernel, label] = (err, abs_err.max().item())
+        self.variants[kernel, label] = ran
         print(f"  {kernel:16s} {label:34s} f32 err {err:.2e}  bf16 ok ({ran}, "
               f"max abs err {abs_err.max().item():.2e})", flush=True)
 
@@ -2248,14 +2274,19 @@ class LossRecorder:
 
 def cli_run(seed, root, execution, frames, custom):
     """The CLI with the custom YAML ``custom`` over ``frames`` frames of a
-    sequence written under ``root``/data, recorded: host reads, launches,
-    Function backward passes, losses, peak memory."""
+    sequence written under ``root``/data, recorded (``recorded_cli``)."""
+    write_run_sequence(os.path.join(root, "data"), seed, frames)
+    return recorded_cli(execution, custom)
+
+
+def recorded_cli(execution, custom):
+    """The CLI with the default YAML and ``custom``, recorded: host reads,
+    launches, Function backward passes, losses, peak memory."""
     from dfvo_torch.apis import run as cli
     from dfvo_torch.ops.correlation import CorrelationFunction
     from dfvo_torch.ops.headconv import HeadConvFunction
     from dfvo_torch.ops.regfilter import RegDistFilterFunction
 
-    write_run_sequence(os.path.join(root, "data"), seed, frames)
     functions = {"correlation": CorrelationFunction, "reg_dist_filter": RegDistFilterFunction,
                  "head_conv": HeadConvFunction}
     for fn in functions.values():
@@ -2558,7 +2589,7 @@ def finetune_phase(chk, seed, out_dir):
     torch.backends.cudnn.allow_tf32 = True
     try:
         cli = {}
-        for execution, frames in (("frame", RUN_FRAMES), ("scan", SCAN_FRAMES)):
+        for execution, frames in (("frame", FT_FRAMES), ("scan", FT_SCAN_FRAMES)):
             r = ft_cli_run(seed, execution, frames)
             cli[execution] = ft_check_cli(r, execution, frames)
         from dfvo_torch.utils import ConfigLoader
@@ -2835,16 +2866,15 @@ def extend_phase(chk, seed, out_dir):
             if not (modes == TRACK_MODE_ESSENTIAL).all() or worst_rot >= 0.1 or worst_t >= 0.05:
                 fail(f"extend oracle chunk: modes {modes.tolist()}, rotation {worst_rot:.3e} "
                      f"deg, translation {worst_t:.3e} of |t| (bounds 0.1 deg, 0.05 |t|)")
-            syncs = count_syncs(run_chunk)
-            if syncs != 1:
-                fail(f"extend chunk_step: {syncs} host syncs, expected 1 (the decision)")
             torch.cuda.synchronize()
             mem0 = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            run_chunk()
+            syncs = count_syncs(run_chunk)
             torch.cuda.synchronize()
             peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
-            ms = time_cuda(run_chunk, reps=1, rounds=3)
+            if syncs != 1:
+                fail(f"extend chunk_step: {syncs} host syncs, expected 1 (the decision)")
+            ms = time_cuda(run_chunk, reps=1, rounds=2)
             prof = profile_call(run_chunk, "extend_chunk_step", out_dir)
             entry.update(ms_per_chunk=ms, ms_per_frame=ms / chunk, host_syncs=syncs,
                          peak_mem_gib=peak, **prof)
@@ -3666,6 +3696,287 @@ def multiseq_phase(chk, seed, out_dir, single_frame_ms):
             "times": times, "seconds_by_part": parts}
 
 
+# the datasets phase: the shipped configurations of the other datasets at
+# their own sizes (bf16, full width, seeded weights, the drawer as shipped),
+# over synthetic sequences in each dataset's layout (dfvo_torch.synth.layouts)
+DS_CFG = {"tum": "tum_rgbd_slam.yml", "adelaide": "adelaide_driving.yml",
+          "robotcar": "oxford_robotcar.yml"}
+DS_SIZE = {"tum": (480, 640), "adelaide": (256, 832), "robotcar": (256, 640)}
+# frames written: TUM runs at frame_step 5, so 31 frames give frames
+# 0, 5, .., 30 (6 tracked) in frame execution and 161 give 33 (one chunk
+# of 32) in scan execution; Adelaide and RobotCar 8 frames each
+DS_RUNS = (("tum_frame", "tum", "frame", 31), ("tum_scan", "tum", "scan", 1 + 32 * 5),
+           ("adelaide", "adelaide", "frame", 8), ("robotcar", "robotcar", "frame", 8))
+# the kernels' batches at each feed: LiteFlowNet's and the depth network's
+# N in `infer` (2 / 1) and, for TUM's scan run, in `infer_chunk` (64 / 32)
+DS_BATCHES = {"tum": ((2, 1), (64, 32)), "adelaide": ((2, 1),), "robotcar": ((2, 1),)}
+# the flow export: two KITTI-flow pairs at KITTI flow's 375x1242 (fed at
+# 384x1248); per pair LiteFlowNet's 5 levels and 10 flow-delta heads
+EXPORT_SIZE, EXPORT_PAIRS = (375, 1242), 2
+EXPORT_PER_PAIR = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 10}
+
+
+def ds_custom(root, kind, execution):
+    """The shipped YAML of ``kind`` with the directories under ``root``
+    (and scan execution): one custom file, since ``-c`` takes one."""
+    import yaml
+
+    with open(os.path.join(ROOT, "options", "examples", DS_CFG[kind])) as f:
+        custom = yaml.safe_load(f)
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    custom["directory"] = {**custom["directory"], "img_seq_dir": data, "result_dir": result}
+    if custom["directory"].get("gt_pose_dir"):
+        custom["directory"]["gt_pose_dir"] = data
+    if execution == "scan":
+        custom["tpu"] = {"execution": "scan"}
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "custom.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(custom, f)
+    return path, custom
+
+
+def ds_check_cli(name, kind, r, execution, ids, result, stamps):
+    """A datasets CLI run's checks: the configuration as shipped, the
+    trajectory (TUM's stamped with its tracked frames' own synchronised
+    timestamps), the launches and their variants, the host reads; returns
+    its summary."""
+    from dfvo_torch.utils.io import load_poses_from_txt
+
+    vo = r["vo"]
+    fe, cfg = vo.frontend, vo.cfg
+    size = DS_SIZE[kind]
+    if (cfg.image.height, cfg.image.width) != size or fe.flow_feed != size \
+            or fe.depth_feed != size or fe.dtype != torch.bfloat16 or vo.drawer is None \
+            or vo.loader != "dataset" or str(cfg.tpu.get("execution", "frame")) != execution:
+        fail(f"datasets {name}: {cfg.image.height}x{cfg.image.width}, feeds {fe.flow_feed} "
+             f"{fe.depth_feed}, {fe.dtype}, drawer {vo.drawer is not None}, loader {vo.loader}")
+    traj_txt = os.path.join(result, f"{cfg.seq}.txt")
+    if kind == "tum":
+        traj = np.loadtxt(traj_txt, ndmin=2)
+        want = [float(stamps[i]) for i in ids]
+        if traj.shape != (len(ids), 8) or not np.isfinite(traj).all() \
+                or traj[:, 0].tolist() != want:
+            fail(f"datasets {name}: TUM file {traj.shape}, stamps {traj[:, 0].tolist()}, "
+                 f"expected {len(ids)} finite lines of 8 stamped {want}")
+    else:
+        traj = load_poses_from_txt(traj_txt)
+        if sorted(traj) != list(ids) or not all(np.isfinite(p).all() for p in traj.values()):
+            fail(f"datasets {name}: frames {sorted(traj)}, expected {len(ids)} finite poses")
+    tracked = len(ids) - 1
+    n_calls = tracked if execution == "frame" else math.ceil(tracked / int(cfg.tpu.scan_chunk))
+    want = {k: n_calls * PER_CALL[k] + DEPTH_ONLY_CALL[k] for k in PER_CALL}
+    print(f"  {name}: launches {r['launches']} (expected {want}: {PER_CALL} per network call, "
+          f"{DEPTH_ONLY_CALL} on the first frame), by variant {r['variants']}")
+    if r["launches"] != want or any(r["variants"][k][MAIN_VARIANT[k]] != want[k] for k in want):
+        fail(f"datasets {name}: launches {r['launches']}, by variant {r['variants']}; "
+             f"expected {want}, all on {MAIN_VARIANT}")
+    if execution == "frame":
+        syncs, where = r["rec"].syncs, r["rec"].where
+        want_syncs = [0] + [RUN_HOST_READS[True]] * tracked
+    else:
+        windows = r["rec"].windows()
+        syncs, where = [len(x) for x in windows], {}
+        for loc in (loc for x in windows for loc in x):
+            where[loc] = where.get(loc, 0) + 1
+        want_syncs = [0] + [SCAN_HOST_READS] * n_calls + [0]
+    if syncs != want_syncs:
+        fail(f"datasets {name}: host reads {syncs}, expected {want_syncs}; by source line {where}")
+    times = vo.timers.timers
+    per_frame = {k: 1e3 * sum(times[k]["times"]) / tracked for k in sorted(times)
+                 if k != "depth_cnn"}
+    print(f"  {name}: {len(ids)} frames, main() in {r['wall']:.2f} s; per tracked frame (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_frame.items())
+          + f"; host reads {syncs} by source line {where}; peak memory "
+          f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    return {"frames": len(ids), "tracked": tracked, "execution": execution,
+            "size": list(size), "wall_s": r["wall"], "ms_per_tracked_frame": per_frame,
+            "host_reads": syncs, "launches": r["launches"], "variants": r["variants"],
+            "peak_mem_gib": r["peak"] / 2**30}
+
+
+def ds_kernels(chk, kind):
+    """Each kernel against its plain version at every shape of ``kind``'s
+    feed at its batches, the variant each launch took, and their times per
+    network call beside the bounds."""
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+    from dfvo_torch.utils import ConfigLoader
+
+    cfg = ConfigLoader().merge_cfg([CFG, os.path.join(ROOT, "options", "examples",
+                                                     DS_CFG[kind])])
+    fe = DeepFrontend(cfg, "cuda")
+    h, w = DS_SIZE[kind]
+    if fe.flow_feed != (h, w) or fe.depth_feed != (h, w):
+        fail(f"datasets {kind}: feeds {fe.flow_feed} {fe.depth_feed}, expected the image size")
+    shapes = main_path_shapes(fe.flow_feed, fe.depth_feed)
+    out = {"sums": {}, "rows": {}}
+    for n, dn in DS_BATCHES[kind]:
+        suffix = f" @{kind} {w}x{h} N={n}"
+        check_main_path_shapes(chk, shapes, lfn_batches=(n,), depth_batches=(dn,),
+                               suffix=suffix)
+        mine = {key: v for key, v in chk.errs.items() if suffix in key[1]}
+        rows, sums = kernel_times(timing_cases(chk, shapes, batches=((n, 1, (6, 5, 4, 3, 2)),),
+                                               depth_n=dn),
+                                  per=f"{kind} {w}x{h} network call at N = {n} / {dn}")
+        out["rows"][f"n{n}"] = rows
+        out["sums"][f"n{n}"] = {
+            name: {**{k: sums[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "launches_per_call")},
+                   "n": n, "depth_n": dn,
+                   "max_abs_err": max(e16 for (kk, _), (_, e16) in mine.items() if kk == name),
+                   "variants": sorted({chk.variants[key] for key in mine if key[0] == name})}
+            for name in PER_CALL}
+    return out
+
+
+def ds_infer_card_vs_cpu(seed):
+    """TUM's `infer` in float32 on the card and on the CPU, one 480x640
+    pair, the parity phase's weights (flow heads x40, flows of pixels),
+    held to the parity phase's limits."""
+    from dfvo_torch.pipeline.frontend import DeepFrontend
+    from dfvo_torch.utils import ConfigLoader
+
+    cfg = ConfigLoader().merge_cfg([CFG, os.path.join(ROOT, "options", "examples",
+                                                     DS_CFG["tum"])])
+    cfg.tpu.dtype = "float32"
+    h, w = cfg.image.height, cfg.image.width
+    imgs = torch.from_numpy(make_frames(seed, 2, h, w)).float() / 255.0
+    outs = {}
+    for device in ("cuda", "cpu"):
+        fe = DeepFrontend(cfg, device)
+        variables = fe.prepare_variables(parity_variables(fe, seed))
+        t0 = time.perf_counter()
+        out = fe.infer(variables, imgs[1].to(device), imgs[0].to(device))
+        outs[device] = ({k: v.cpu() for k, v in out.items()}, time.perf_counter() - t0)
+    (got, tg), (want, tc) = outs["cuda"], outs["cpu"]
+    res = {"depth_cur_rel": ((got["depth_cur"] - want["depth_cur"]).abs()
+                             / want["depth_cur"].abs()).max().item()}
+    for key in ("flow_fwd", "flow_bwd", "flow_diff"):
+        res[key] = (got[key] - want[key]).abs().max().item()
+    res["max_abs_flow_px"] = want["flow_fwd"].abs().max().item()
+    print(f"  TUM infer f32, card ({tg:.2f} s) vs CPU ({tc:.2f} s), one {w}x{h} pair, |flow| up "
+          f"to {res['max_abs_flow_px']:.2f} px: depth relative {res['depth_cur_rel']:.2e} "
+          f"(limit 1e-3); " + ", ".join(f"{k} {res[k]:.2e} px" for k in
+                                         ("flow_fwd", "flow_bwd", "flow_diff"))
+          + " (limit 1e-2)", flush=True)
+    if not res["depth_cur_rel"] <= 1e-3 or any(
+            not res[k] <= 1e-2 for k in ("flow_fwd", "flow_bwd", "flow_diff")):
+        fail(f"datasets TUM infer card vs CPU: {res}")
+    return res
+
+
+def ds_flow_export(seed, root):
+    """python -m dfvo_torch.tools.generate_flow_prediction on the card over
+    EXPORT_PAIRS synthetic KITTI-flow pairs at 375x1242, through a --model
+    checkpoint (the parity phase's weights); the PNGs read back against the
+    port's own flows of the same pairs within the PNG's 1/64 px and the
+    bf16 flow tolerance; the launches per pair."""
+    import cv2
+
+    from dfvo_torch.flowlib import read_kitti_png_flow
+    from dfvo_torch.pipeline.frontend import DeepFrontend, resize_dense_flow
+    from dfvo_torch.synth.layouts import panning_frames
+    from dfvo_torch.tools import generate_flow_prediction as gfp
+
+    h, w = EXPORT_SIZE
+    data, result = os.path.join(root, "data"), os.path.join(root, "result")
+    os.makedirs(data, exist_ok=True)
+    frames = panning_frames(seed, 2 * EXPORT_PAIRS, h, w)
+    for k in range(EXPORT_PAIRS):
+        for j, suffix in enumerate(("_10", "_11")):
+            cv2.imwrite(os.path.join(data, f"{k:06d}{suffix}.png"),
+                        cv2.cvtColor(frames[2 * k + j], cv2.COLOR_RGB2BGR))
+    cfg = load_cfg()
+    cfg.image.height, cfg.image.width = gfp.feed_size(h, w)
+    fe = DeepFrontend(cfg, "cuda")
+    variables = parity_variables(fe, seed)
+    model = os.path.join(root, "network-parity.pytorch")
+    torch.save(variables["flow"], model)
+    counters = reset_launch_counts()
+    t0 = time.perf_counter()
+    export = gfp.main(["--data_dir", data, "--result", result, "--model", model])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    variants = {k: dict(fn.variant_launches) for k, fn in counters.items()}
+    want = {k: EXPORT_PAIRS * v for k, v in EXPORT_PER_PAIR.items()}
+    if export.seeded or export.frontend.flow_feed != (384, 1248) \
+            or export.frontend.dtype != torch.bfloat16 or launches != want \
+            or any(variants[k][MAIN_VARIANT[k]] != want[k] for k in want):
+        fail(f"flow export: feed {export.frontend.flow_feed}, {export.frontend.dtype}, launches "
+             f"{launches}, by variant {variants}; expected {want}")
+    # the port's own flows: the frontend's LiteFlowNet on the same feed with
+    # the weights as drawn (not read back from the checkpoint), resized to
+    # the image as the JAX tool resizes them
+    v = fe.prepare_variables(variables)
+    worst, limit = 0.0, 1.0 / 64 + BF16_FLOW_ATOL_PX
+    for k in range(EXPORT_PAIRS):
+        flow, valid = read_kitti_png_flow(os.path.join(result, f"{k:06d}_10.png"))
+        feed = torch.stack([export.prepare(frames[2 * k + j]) for j in (0, 1)]).to(fe.dtype)
+        with torch.no_grad():
+            native = fe._flow(v, feed, feed.flip(0), "shared")
+        mine = resize_dense_flow(native[:1], h, w)[0].cpu().numpy()
+        err = float(np.abs(flow - mine).max())
+        worst = max(worst, err)
+        if flow.shape != (h, w, 2) or not valid.all() or not err <= limit:
+            fail(f"flow export pair {k}: {flow.shape}, valid {valid.mean():.3f}, max abs err "
+                 f"{err:.3e} px against the port's infer (limit {limit:.3e})")
+    print(f"  flow export: {EXPORT_PAIRS} pairs {w}x{h} (fed at {export.frontend.flow_feed}, "
+          f"bf16) in {wall:.2f} s; launches {launches} ({EXPORT_PER_PAIR} per pair), by variant "
+          f"{variants}; PNGs against the port's infer: max abs err {worst:.3e} px (limit "
+          f"{limit:.3e}; |flow| up to {np.abs(mine).max():.2f} px)", flush=True)
+    return {"pairs": EXPORT_PAIRS, "size": list(EXPORT_SIZE), "feed": [384, 1248],
+            "wall_s": wall, "launches": launches, "variants": variants, "max_abs_err_px": worst,
+            "limit_px": limit}
+
+
+@phase("datasets")
+def datasets_phase(chk, seed):
+    """The shipped TUM RGB-D, Adelaide and Oxford RobotCar configurations
+    on the card: each kernel at each new feed against its plain version
+    with the variant named, and its times; the CLI over synthetic
+    sequences in each layout (TUM in both executions); TUM's float32
+    `infer` against the CPU; the flow export at 375x1242."""
+    from dfvo_torch.synth import layouts
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "datasets")
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    kernels = {}
+    for kind in DS_CFG:
+        kernels[kind] = ds_kernels(chk, kind)
+        lap(f"kernels_{kind}")
+    cli = {}
+    for name, kind, execution, written in DS_RUNS:
+        root = os.path.join(base, name)
+        custom, cfg = ds_custom(root, kind, execution)
+        data, seq = cfg["directory"]["img_seq_dir"], str(cfg["seq"])
+        stamps = None
+        if kind == "tum":
+            stamps = layouts.write_tum(data, seq, written, *DS_SIZE[kind], seed=seed)
+        elif kind == "adelaide":
+            layouts.write_adelaide(data, seq, written, *DS_SIZE[kind], seed=seed)
+        else:
+            layouts.write_robotcar(data, seq, written, seed=seed)
+        step = int(cfg.get("frame_step", 1))
+        r = recorded_cli(execution, custom)
+        cli[name] = ds_check_cli(name, kind, r, execution, list(range(0, written, step)),
+                                 cfg["directory"]["result_dir"], stamps)
+        lap(f"cli_{name}")
+    parity = ds_infer_card_vs_cpu(seed)
+    lap("infer_card_vs_cpu")
+    export = ds_flow_export(seed, os.path.join(base, "export"))
+    lap("flow_export")
+    print("  seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"kernels": kernels, "cli": cli, "infer_card_vs_cpu": parity, "flow_export": export,
+            "seconds_by_part": parts}
+
+
 def hd3_summary(hd3, smi):
     """The hd3 phase's numbers for its JSON line."""
     return {"cli": {k: {kk: vv for kk, vv in v.items() if kk != "host_reads_by_line"}
@@ -3721,6 +4032,7 @@ def main():
     extend = extend_phase(chk, SEED, out_dir)
     hd3 = hd3_phase(chk, SEED, out_dir)
     multiseq = multiseq_phase(chk, SEED, out_dir, tracking["frame_step"]["ms_per_frame"])
+    datasets = datasets_phase(chk, SEED)
 
     sources = {
         "correlation": ("dfvo_torch/csrc/correlation.cu", "dfvo_tpu/ops/pallas_corr.py:30"),
@@ -3753,7 +4065,13 @@ def main():
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "launches_per_call")}},
          "at_370x1226": {k: extend["kernel_sums"][name][k] for k in (
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")}}
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_per_call")},
+         **{f"at_{kind}_{DS_SIZE[kind][0]}x{DS_SIZE[kind][1]}": {
+             n: by[name] for n, by in datasets["kernels"][kind]["sums"].items()}
+            for kind in DS_CFG},
+         "launches_datasets": {run: datasets["cli"][run]["launches"][name]
+                               for run in datasets["cli"]},
+         "launches_flow_export": datasets["flow_export"]["launches"][name]}
         for name, (src, rep) in sources.items()
     ]
     # HD3's use of the cost volume (D = 4, 81 channels): times, bound and
@@ -3781,7 +4099,8 @@ def main():
         "parity": parity, "kernels": kernels, "profile": profile,
         "track": track, "frame": {"modes": frame["modes"], "launches": frame["launches"]},
         "tracking": tracking, "run": run, "scan": scan, "finetune": finetune,
-        "extend": extend, "hd3": hd3, "multiseq": multiseq, "lost_traces": LOST_TRACES,
+        "extend": extend, "hd3": hd3, "multiseq": multiseq, "datasets": datasets,
+        "lost_traces": LOST_TRACES,
         "seconds": time.perf_counter() - t_start,
     }
     with open(args.out, "w") as f:
@@ -3824,6 +4143,10 @@ def main():
     print(json.dumps({"multiseq": {
         **multiseq, "nvidia_smi": smi,
         "kernels": {k: v for k, v in multiseq["kernels"].items() if k != "kernel_rows"}}}))
+    print(json.dumps({"datasets": {
+        "cli": datasets["cli"], "infer_card_vs_cpu": datasets["infer_card_vs_cpu"],
+        "flow_export": datasets["flow_export"], "seconds_by_part": datasets["seconds_by_part"],
+        "nvidia_smi": smi}}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -216,16 +216,6 @@ def test_kitti_loaders_match_jax(layouts, tmp_path, dataset):
     assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
 
 
-def test_unported_datasets_name_their_item(layouts):
-    from dfvo_torch.datasets import datasets as t_registry
-
-    for name in ("tum-1", "tum-2", "tum-3", "adelaide1", "adelaide2", "kinect", "robotcar"):
-        cfg = _cfg(TConfigLoader, layouts)
-        cfg.dataset = name
-        with pytest.raises(NotImplementedError, match="item 13"):
-            t_registry[name](cfg)
-
-
 # -- evaluation --------------------------------------------------------------
 
 @pytest.mark.parametrize("alignment", [None, "scale", "scale_7dof", "7dof", "6dof"])

@@ -43,6 +43,28 @@ def test_port_imports_no_jax():
     assert not bad, f"port files import {bad}"
 
 
+def _module_level_roots(path):
+    """Top-level package names imported by the module body itself (not
+    inside a function or class)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_needs_no_tqdm_and_no_module_level_matplotlib():
+    """The card's host has neither: no port file imports tqdm anywhere, and
+    matplotlib only inside the functions that plot."""
+    tqdm = [str(p.relative_to(REPO)) for p in PORT_FILES if "tqdm" in set(_imported_roots(p))]
+    mpl = [str(p.relative_to(REPO)) for p in PORT_FILES
+           if "matplotlib" in set(_module_level_roots(p))]
+    assert not tqdm and not mpl, (tqdm, mpl)
+    assert "matplotlib" in set(_imported_roots(REPO / "dfvo_torch/evaluation/kitti_odometry.py"))
+
+
 def test_scan_catches_a_jax_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import os\nfrom jax import numpy\nimport dfvo_tpu.ops\n")
