@@ -79,15 +79,19 @@ seconds, none caught:
    and the filter at its five levels on the [2, ...] pair batch, the ten
    flow heads and the four disparity heads) against autograd of the plain
    version on the same inputs and cotangent, launching the float32
-   variants (cuda_core; async_tile for the filter); each one's forward and
-   plain-VJP backward device ms beside their bounds and, for the head
-   conv, cuDNN's conv2d and convolution_backward. Then the CLI with
+   variants (cuda_core; async_tile for the filter) and, in the backward,
+   the backward kernels of the cost volume and the head conv once each
+   (the filter's backward is the plain VJP); the backward kernels also in
+   bf16 at those shapes against their plain versions; each one's forward
+   and backward device ms beside their bounds, the plain VJP's and, for
+   the head conv, cuDNN's conv2d and convolution_backward. Then the CLI with
    ablation_self_flow_online.yml's options plus depth finetuning and
    save_model, in frame execution over FT_FRAMES frames and in scan
    execution over FT_SCAN_FRAMES frames: one update per tracked frame, the
    weights moved and the running statistics fixed, finite losses,
    finetuned_model/ written, launches (inference + 5 / 5 / 14 float32
-   launches and as many Function backward passes per update) and host
+   launches, as many Function backward passes and 5 / 14 backward-kernel
+   launches per update) and host
    reads (3 per frame; 2 per chunk and 1 for the saved model) under CUDA
    sync debug mode. Then one update at 192x640 on the card (TF32 off, and
    cuDNN's TF32 convolutions, PyTorch's default) against the CPU, beside
@@ -98,12 +102,16 @@ seconds, none caught:
    the default, at its 370x1226 (LiteFlowNet and the depth network fed at
    384x1248). Each kernel against its plain version at every shape it gets
    there (N = 2 and 64; the disparity heads at N = 1 and 32) and their
-   times per infer_chunk call beside the bounds; the CLI with flow
+   times per infer_chunk call beside the bounds, and LiteFlowNet's per
+   pair at N = 2 (the flow export's feed); the flow finetuning's Functions
+   at N = 2 with the backward kernels (float32, and the backward kernels
+   in bf16) against autograd of the plain version; the CLI with flow
    finetuning (scales 1-5), rigid-flow keypoints and iterative scale in
    frame execution over EXT_FRAMES frames and in scan execution over
    EXT_SCAN_FRAMES frames (one full chunk of 32 and a padded one): finite
    poses, one update per tracked frame, launches (inference + 5 / 5 / 10
-   float32 launches per update) and host reads (3 per frame with the
+   float32 launches and 5 / 10 backward-kernel launches per update) and
+   host reads (3 per frame with the
    drawer; 2 per chunk) under CUDA sync debug mode, the timer scopes and
    peak memory. Then the iterative step (iterative scale, the E and PnP
    trackers' iterative keypoints) on the track scenes at 370x1226 on the
@@ -122,12 +130,16 @@ seconds, none caught:
    (3x10x512 .. 48x160x64) at N = 2 and 64 against its plain version
    (tensor_core up to 256 channels, cuda_core at 512) and its times per
    network call at N = 64 and N = 2 in bf16 and at N = 2 in float32 (an
-   update) beside the bound; HD3 infer in float32 on the card against the
-   CPU on one pair; the CLI in frame execution over HD3_FRAMES frames
+   update) beside the bound; its Function at a flow update's N = 2 in
+   float32 with the backward kernel at D = 4 (and that kernel in bf16)
+   against autograd of the plain version, with the forward and backward
+   times; HD3 infer in float32 on the card against the CPU on one pair;
+   the CLI in frame execution over HD3_FRAMES frames
    (drawer on) and in scan execution over HD3_SCAN_FRAMES frames, then both
    with flow finetuning at scales 1-5 (HD3_FT_PAIRS updates): finite poses,
    launches (5 cost volumes at D = 4 and 4 disparity heads per network
-   call, 5 float32 cost volumes and their backward passes per update),
+   call, 5 float32 cost volumes, their backward passes and 5 backward
+   kernels at D = 4 per update),
    host reads (3 per frame, 2 per chunk) and the timer scopes; bench.py's
    oracle drive through one HD3 chunk_step (every frame by E, held to the
    GT); CUDA-event ms, kernels, busy share, host syncs and peak memory of
@@ -146,7 +158,9 @@ seconds, none caught:
    chunk), the timers; the batched step in float32 over 4 sequences on the
    card against the CPU; one sequence-averaged update over 4 pairs in
    float32 (TF32 off) against the CPU's loss and gradient, and
-   make_train_step's launches at N = 8; CUDA-event ms, per sequence-frame,
+   make_train_step's launches at N = 8 (the backward kernels' too); each
+   Function at N = 8 with the forward and backward times per update;
+   CUDA-event ms, per sequence-frame,
    kernels, busy share, host syncs and peak memory of the batched VO step
    and the chunk step over the 11 sequences, beside the single-sequence
    frame_step. The run phase also saves a float32 run after frame 5,
@@ -176,7 +190,8 @@ frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
 finetuning, a JSON line of the extend phase, a JSON line of the hd3 phase,
 a JSON line of the multiseq phase, a JSON line of the datasets phase, a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
-own, correlation_d4; launches from the slice phase, from the CLI run as launches_cli, from the
+own, correlation_d4, and the backward kernels as correlation_backward and
+head_conv_backward, timed per finetuning update; launches from the slice phase, from the CLI run as launches_cli, from the
 scan execution as launches_scan, from the finetuning updates of both CLI
 runs as launches_finetune and from the extend phase's two CLI runs as
 launches_extend, from the multiseq phase's two CLI runs and its update by
@@ -523,7 +538,8 @@ def kernels_phase(chk):
                 lambda a, b: correlation_plain(a, b, 3, 2),
                 (chk.randn((2, 48, 160, 64)), chk.randn((2, 48, 160, 64))),
                 main_path=False)
-    # no backward pass yet: a CUDA input that requires grad is refused while
+    # the raw forward wrappers record no gradient (the Functions carry the
+    # backward kernels): a CUDA input that requires grad is refused while
     # autograd records, before any launch
     x = chk.randn((2, 12, 40, 64)).bfloat16()
     raw, flow = chk.randn((2, 12, 40, 9)).bfloat16(), chk.randn((2, 12, 40, 2)).bfloat16()
@@ -631,11 +647,23 @@ def launch_counts():
             "head_conv": head_conv_cuda}
 
 
+def backward_counts():
+    """The backward kernels' wrappers, by the forward kernel they belong to
+    (the filter's backward is still the plain VJP and launches none)."""
+    from dfvo_torch.ops.headconv import head_conv_backward_cuda
+    from dfvo_torch.ops.pallas_corr import correlation_backward_cuda
+
+    return {"correlation": correlation_backward_cuda, "head_conv": head_conv_backward_cuda}
+
+
 def reset_launch_counts():
+    """Every count of the forward and backward kernels to 0; returns the
+    forward ones (``backward_counts`` has the others)."""
     counters = launch_counts()
-    for fn in counters.values():
+    for fn in (*counters.values(), *backward_counts().values()):
         fn.launches = 0
-        for counts in (getattr(fn, "variant_launches", {}), getattr(fn, "disp_launches", {})):
+        for counts in (getattr(fn, "variant_launches", {}), getattr(fn, "disp_launches", {}),
+                       getattr(fn, "dtype_launches", {})):
             for v in counts:
                 counts[v] = 0
         fn.batch_launches.clear()
@@ -938,16 +966,26 @@ def device_ms(fn, reps=20, label="call"):
     which set the pace of small shapes on a slow host.
 
     A trace counts only when it holds every device event of its calls:
-    ``reps`` times the events of one call, on which two of three traces of
-    one call must agree. A trace that holds another number is recorded in
-    ``LOST_TRACES`` and taken again, four times at most; then the script
-    fails. No other measure stands in for it."""
+    ``reps`` times the events of one call, on which two traces of one call
+    must agree (of at most six: a trace can lose events of its call too,
+    and the calls are traced until two agree). A trace that holds another
+    number is recorded in ``LOST_TRACES`` and taken again, four times at
+    most; then the script fails. No other measure stands in for it."""
     fn()
     torch.cuda.synchronize()
-    one = [trace(fn, 1)[1] for _ in range(3)]
-    per_call = max(set(one), key=one.count)
-    if one.count(per_call) < 2 or per_call == 0:
-        fail(f"{label}: three traces of one call held {one} device events")
+    one = []
+    while True:
+        one.append(trace(fn, 1)[1])
+        per_call = max(set(one), key=one.count)
+        if one.count(per_call) >= 2 and per_call > 0:
+            break
+        if len(one) == 6:
+            fail(f"{label}: six traces of one call held {one} device events")
+    for n in one:
+        if n != per_call:
+            LOST_TRACES.append((label, 1, n, per_call))
+            print(f"  ({label}: a trace of one call held {n} device events, not "
+                  f"{per_call}; traced again)", flush=True)
     for _ in range(5):
         ms, events = trace(fn, reps)
         if events == per_call * reps:
@@ -2060,46 +2098,59 @@ def scan_phase(seed, out_dir):
     }
 
 
-def ft_cases(chk, n=2, depth=True):
-    """Every kernel at every shape of one finetuning update (192x640, float32;
-    LiteFlowNet N = ``n``, depth N = 1 where ``depth``): (kernel, label,
-    Function, plain version, kernel wrapper, tensor inputs, other arguments,
-    calls per update, forward bound, backward bound, library forward,
-    library backward)."""
-    from dfvo_torch.ops.correlation import CorrelationFunction, correlation_plain
-    from dfvo_torch.ops.headconv import HeadConvFunction, head_conv_cuda, head_conv_plain
-    from dfvo_torch.ops.pallas_corr import correlation_cuda
+def ft_cases(chk, n=2, depth=True, shapes=None):
+    """Every kernel at every shape of one finetuning update (float32;
+    ``shapes`` as ``main_path_shapes`` gives them, 192x640 by default;
+    LiteFlowNet N = ``n``, depth N = 1 where ``depth``). Each case is a
+    dict: kernel, label, the Function, the plain version, the kernel
+    wrapper, the tensor inputs, the other arguments, calls per update, the
+    forward and backward bounds, the library forward and backward (the head
+    conv's cuDNN calls), and the backward kernel's wrapper and its plain
+    version (None for the filter, whose backward is the plain VJP)."""
+    from dfvo_torch.ops.correlation import (CorrelationFunction, correlation_backward_plain,
+                                            correlation_plain)
+    from dfvo_torch.ops.headconv import (HeadConvFunction, head_conv_backward_cuda,
+                                         head_conv_backward_plain, head_conv_cuda,
+                                         head_conv_plain)
+    from dfvo_torch.ops.pallas_corr import correlation_backward_cuda, correlation_cuda
     from dfvo_torch.ops.regfilter import (RegDistFilterFunction, reg_dist_filter_cuda,
                                           reg_dist_filter_plain)
 
+    corr_shapes, reg_shapes, lfn_heads, depth_heads = shapes or (
+        CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS)
     cases = []
-    for lvl, (h, w, c) in CORR_SHAPES:
+    for lvl, (h, w, c) in corr_shapes:
         # levels 3 and 2 read the stride-2 view of the level's features
         f1 = chk.randn((n, 2 * h, 2 * w, c))[:, ::2, ::2] if lvl <= 3 else chk.randn((n, h, w, c))
         f2 = chk.randn((n, h, w, c))
         io = 4 * (2 * n * h * w * c + n * h * w * 49)
         ops = 2 * n * h * w * 49 * c
-        cases.append(("correlation", f"L{lvl} [{n}, {h}, {w}, {c}]", CorrelationFunction,
-                      correlation_plain, correlation_cuda, (f1, f2), (3, 1), 1,
-                      bound(io, ops, PEAK_F32),
-                      # read f1, f2 and the cotangent, write both gradients;
-                      # two products per tap and channel
-                      bound(io + 4 * 2 * n * h * w * c, 2 * ops, PEAK_F32), None, None))
-    for lvl, (h, w), k in REG_SHAPES:
+        cases.append(dict(
+            kernel="correlation", label=f"L{lvl} [{n}, {h}, {w}, {c}]", fn=CorrelationFunction,
+            plain=correlation_plain, kfn=correlation_cuda, ins=(f1, f2), rest=(3, 1), calls=1,
+            fwd_bound=bound(io, ops, PEAK_F32),
+            # read f1, f2 and the cotangent, write both gradients; two
+            # products per tap and channel
+            bwd_bound=bound(io + 4 * 2 * n * h * w * c, 2 * ops, PEAK_F32),
+            lib_fwd=None, lib_bwd=None, bwd_kfn=correlation_backward_cuda,
+            bwd_plain=correlation_backward_plain))
+    for lvl, (h, w), k in reg_shapes:
         kk = k * k
         ins = (chk.randn((n, h, w, kk), 2.0), chk.randn((n, h, w, 2), 4.0),
                chk.randn((1, kk, 1, 1)), chk.randn((1,)), chk.randn((1, kk, 1, 1)),
                chk.randn((1,)))
         io = 4 * (n * h * w * (kk + 4) + 2 * kk + 2)
         ops = n * h * w * (11 * kk + 6)
-        cases.append(("reg_dist_filter", f"L{lvl} k{k} [{n}, {h}, {w}]", RegDistFilterFunction,
-                      reg_dist_filter_plain, reg_dist_filter_cuda, ins, (k,), 1,
-                      bound(io, ops, PEAK_F32),
-                      # read the inputs and the cotangent, write a gradient of
-                      # each input; the VJP counted as twice the forward's work
-                      bound(2 * io, 2 * ops, PEAK_F32), None, None))
-    heads = [(name, (n, *hwc), cout, k, pre, 2) for name, hwc, cout, k, pre in LFN_HEADS]
-    heads += [(name, (1, *hwc), cout, k, pre, 1) for name, hwc, cout, k, pre in DEPTH_HEADS
+        cases.append(dict(
+            kernel="reg_dist_filter", label=f"L{lvl} k{k} [{n}, {h}, {w}]",
+            fn=RegDistFilterFunction, plain=reg_dist_filter_plain, kfn=reg_dist_filter_cuda,
+            ins=ins, rest=(k,), calls=1, fwd_bound=bound(io, ops, PEAK_F32),
+            # read the inputs and the cotangent, write a gradient of each
+            # input; the VJP counted as twice the forward's work
+            bwd_bound=bound(2 * io, 2 * ops, PEAK_F32), lib_fwd=None, lib_bwd=None,
+            bwd_kfn=None, bwd_plain=None))
+    heads = [(name, (n, *hwc), cout, k, pre, 2) for name, hwc, cout, k, pre in lfn_heads]
+    heads += [(name, (1, *hwc), cout, k, pre, 1) for name, hwc, cout, k, pre in depth_heads
               if depth]
     for name, (nn_, h, w, cin), cout, k, pre, calls in heads:
         x = chk.randn((nn_, h, w, cin))
@@ -2107,7 +2158,7 @@ def ft_cases(chk, n=2, depth=True):
         bias = chk.randn((cout,), 0.1)
         pad = 0 if pre else (k - 1) // 2
         oh, ow = h - 2 * ((k - 1) // 2 - pad), w - 2 * ((k - 1) // 2 - pad)
-        io = 4 * (nn_ * h * w * cin + nn_ * oh * ow * cout + k * k * cin * cout + cout)
+        x_b, g_b, w_b = 4 * nn_ * h * w * cin, 4 * nn_ * oh * ow * cout, 4 * k * k * cin * cout
         ops = 2 * nn_ * oh * ow * k * k * cin * cout
 
         def lib_fwd(x=x, w=w_oihw, b=bias, pad=pad):
@@ -2117,30 +2168,70 @@ def ft_cases(chk, n=2, depth=True):
             return torch.ops.aten.convolution_backward(
                 g, x.permute(0, 3, 1, 2), w, [w.shape[0]], [1, 1], [pad, pad], [1, 1],
                 False, [0, 0], 1, [True, True, True])
-        cases.append(("head_conv", f"{name} [{nn_}, {h}, {w}, {cin}]", HeadConvFunction,
-                      head_conv_plain, head_conv_cuda,
-                      (x, w_oihw.permute(2, 3, 1, 0), bias), (pre,), calls,
-                      bound(io, ops, PEAK_F32),
-                      # read x, the weights and the cotangent, write the three
-                      # gradients; the input and weight gradients each as many
-                      # products as the forward
-                      bound(2 * io, 2 * ops, PEAK_F32), lib_fwd, lib_bwd))
+        cases.append(dict(
+            kernel="head_conv", label=f"{name} [{nn_}, {h}, {w}, {cin}]", fn=HeadConvFunction,
+            plain=head_conv_plain, kfn=head_conv_cuda,
+            ins=(x, w_oihw.permute(2, 3, 1, 0), bias), rest=(pre,), calls=calls,
+            fwd_bound=bound(x_b + g_b + w_b + 4 * cout, ops, PEAK_F32),
+            # read x, the weights and the cotangent, write the three
+            # gradients; the input and weight gradients each as many
+            # products as the forward
+            bwd_bound=bound(2 * x_b + g_b + 2 * w_b + 4 * cout, 2 * ops, PEAK_F32),
+            lib_fwd=lib_fwd, lib_bwd=lib_bwd, bwd_kfn=head_conv_backward_cuda,
+            bwd_plain=head_conv_backward_plain))
     return cases
+
+
+def ft_bwd_bf16(case, cot):
+    """The case's backward kernel in bf16 against its plain version in
+    float32 on the same bf16-rounded inputs and cotangent: |got - ref| <=
+    2e-2 |ref| (the gradient's rounding to bf16) + 1e-4 max(1, max |ref|)
+    (summation order). Returns the largest error."""
+    ins = [t.bfloat16() for t in case["ins"]]
+    g = cot.bfloat16()
+    needs = (True,) * len(ins)
+    counter = backward_counts()[case["kernel"]]
+    before = counter.dtype_launches[torch.bfloat16]
+    got = case["bwd_kfn"](g, *ins, *case["rest"], needs=needs)
+    if counter.dtype_launches[torch.bfloat16] != before + 1:
+        fail(f"finetune {case['kernel']} {case['label']}: the bf16 backward kernel did not "
+             "launch once")
+    ref = case["bwd_plain"](g.float(), *[t.float() for t in ins], *case["rest"], needs=needs)
+    worst = 0.0
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if a.dtype != torch.bfloat16:
+            fail(f"finetune {case['kernel']} {case['label']}: bf16 gradient {i} is {a.dtype}")
+        err = (a.float() - r).abs()
+        excess = (err - 2e-2 * r.abs()).max().item()
+        scale = max(1.0, r.abs().max().item())
+        torch.cuda.synchronize()
+        if not excess <= 1e-4 * scale:
+            fail(f"finetune {case['kernel']} {case['label']}: bf16 gradient {i} exceeds "
+                 f"2e-2 |ref| by {excess:.3e}")
+        worst = max(worst, err.max().item())
+    return worst
 
 
 def ft_kernel_checks(cases):
     """Each case through its Function on the card (the float32 kernel, then
-    the plain version's VJP) against autograd of the plain version on the
-    same inputs and cotangent: the output within 1e-4·max(1, |ref|) and
-    each input gradient within 1e-4·max(1, |ref|) (the same plain code in
-    both; cuDNN may pick another algorithm). Returns {kernel: (forward err,
-    backward err)}."""
+    the backward: the backward kernel, launched once, for the cost volume
+    and the head conv; the plain version's VJP for the filter) against
+    autograd of the plain version on the same inputs and cotangent: the
+    output within 1e-4·max(1, |ref|) and each input gradient within
+    1e-4·max(1, |ref|); then each backward kernel in bf16
+    (``ft_bwd_bf16``). Returns {kernel: (forward err, backward err)} and
+    the worst bf16 backward error per kernel."""
     counters = launch_counts()
+    bwd = backward_counts()
     worst = {k: [0.0, 0.0] for k in PER_CALL}
-    for kernel, label, fn_cls, plain, _, ins, rest, *_ in cases:
+    worst_bf16 = {k: 0.0 for k in bwd}
+    for case in cases:
+        kernel, label, fn_cls, plain = case["kernel"], case["label"], case["fn"], case["plain"]
+        ins, rest = case["ins"], case["rest"]
         leaves = [t.detach().clone().requires_grad_(True) for t in ins]
         before = dict(counters[kernel].variant_launches)
         calls = fn_cls.backward_calls
+        bwd_before = bwd[kernel].dtype_launches[torch.float32] if kernel in bwd else 0
         out = fn_cls.apply(*leaves, *rest)
         after = counters[kernel].variant_launches
         ran = [v for v in after if after[v] != before[v]]
@@ -2150,6 +2241,10 @@ def ft_kernel_checks(cases):
         grads = torch.autograd.grad(out, leaves, cot)
         if fn_cls.backward_calls != calls + 1:
             fail(f"finetune {kernel} {label}: the Function's backward did not run")
+        launched = bwd[kernel].dtype_launches[torch.float32] - bwd_before if kernel in bwd else 0
+        if kernel in bwd and launched != 1:
+            fail(f"finetune {kernel} {label}: the backward kernel launched {launched} times "
+                 "in one backward pass, expected 1")
         ref_leaves = [t.detach().clone().requires_grad_(True) for t in ins]
         ref = plain(*ref_leaves, *rest)
         ref_grads = torch.autograd.grad(ref, ref_leaves, cot)
@@ -2164,18 +2259,29 @@ def ft_kernel_checks(cases):
             errs.append(err)
         worst[kernel][0] = max(worst[kernel][0], errs[0])
         worst[kernel][1] = max(worst[kernel][1], max(errs[1:]))
-        print(f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
-              f"input grads err {max(errs[1:]):.2e}", flush=True)
-    return worst
+        line = (f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
+                f"input grads err {max(errs[1:]):.2e} "
+                + ("(backward kernel)" if kernel in bwd else "(plain VJP)"))
+        if kernel in bwd:
+            e16 = ft_bwd_bf16(case, cot)
+            worst_bf16[kernel] = max(worst_bf16[kernel], e16)
+            line += f"; bf16 backward kernel ok, max abs err {e16:.2e}"
+        print(line, flush=True)
+    return worst, worst_bf16
 
 
-def ft_kernel_times(cases):
+def ft_kernel_times(cases, per="update"):
     """Device ms (torch.profiler) of each case's float32 kernel forward and
-    of its backward (the plain version's VJP: the recomputed forward and its
-    gradients), beside the plain forward, the library calls and the bounds;
-    summed per update."""
+    of its backward as the Function runs it (the backward kernel for the
+    cost volume and the head conv; the plain version's VJP, the recomputed
+    forward and its gradients, for the filter), beside the plain forward,
+    the plain VJP, the library calls and the bounds; summed per ``per``."""
     rows = []
-    for kernel, label, _, plain, kfn, ins, rest, calls, bfwd, bbwd, lfwd, lbwd in cases:
+    for case in cases:
+        kernel, label, plain, kfn = case["kernel"], case["label"], case["plain"], case["kfn"]
+        ins, rest, calls = case["ins"], case["rest"], case["calls"]
+        bfwd, bbwd, lfwd, lbwd, bkfn = (case[k] for k in (
+            "fwd_bound", "bwd_bound", "lib_fwd", "lib_bwd", "bwd_kfn"))
         leaves = [t.detach().clone().requires_grad_(True) for t in ins]
         cot = torch.randn_like(plain(*ins, *rest))
 
@@ -2193,17 +2299,22 @@ def ft_kernel_times(cases):
                    "library_bwd_ms": device_ms(lbwd, label=f"{label} library bwd")
                    if lbwd else None,
                    "fwd_bound_ms": bfwd[0], "fwd_bound_by": bfwd[1],
-                   "bwd_bound_ms": bbwd[0], "bwd_bound_by": bbwd[1]}
-        row["bwd_ms"] = device_ms(vjp, reps=3, label=f"{label} plain bwd")
+                   "bwd_bound_ms": bbwd[0], "bwd_bound_by": bbwd[1],
+                   "bwd_route": "kernel" if bkfn else "plain VJP"}
+            if bkfn:
+                row["bwd_ms"] = device_ms(lambda: bkfn(cot, *ins, *rest), label=f"{label} bwd")
+        row["plain_bwd_ms"] = device_ms(vjp, reps=3, label=f"{label} plain bwd")
+        if not bkfn:
+            row["bwd_ms"] = row["plain_bwd_ms"]
         rows.append(row)
         lf = "none" if lfwd is None else f"{row['library_fwd_ms']:.4f}"
         lb = "none" if lbwd is None else f"{row['library_bwd_ms']:.4f}"
         print(f"  {kernel:16s} {label:32s} fwd {row['fwd_ms']:.4f} (bound {bfwd[0]:.4f} "
               f"{bfwd[1]}, plain {row['plain_fwd_ms']:.4f}, library {lf})  bwd "
-              f"{row['bwd_ms']:.4f} (bound {bbwd[0]:.4f} {bbwd[1]}, library {lb})  "
-              f"x{calls}", flush=True)
+              f"[{row['bwd_route']}] {row['bwd_ms']:.4f} (bound {bbwd[0]:.4f} {bbwd[1]}, "
+              f"plain VJP {row['plain_bwd_ms']:.4f}, library {lb})  x{calls}", flush=True)
     sums = {}
-    for name in PER_CALL:
+    for name in sorted({r["kernel"] for r in rows}, key=list(PER_CALL).index):
         mine = [r for r in rows if r["kernel"] == name]
 
         def tot(key, mine=mine):
@@ -2219,13 +2330,15 @@ def ft_kernel_times(cases):
                       "fwd_ms": tot("fwd_ms"), "plain_fwd_ms": tot("plain_fwd_ms"),
                       "fwd_bound_ms": tot("fwd_bound_ms"), "fwd_bound_by": by("fwd"),
                       "library_fwd_ms": tot("library_fwd_ms"),
-                      "bwd_ms": tot("bwd_ms"), "bwd_bound_ms": tot("bwd_bound_ms"),
+                      "bwd_route": mine[0]["bwd_route"], "bwd_ms": tot("bwd_ms"),
+                      "plain_bwd_ms": tot("plain_bwd_ms"), "bwd_bound_ms": tot("bwd_bound_ms"),
                       "bwd_bound_by": by("bwd"), "library_bwd_ms": tot("library_bwd_ms")}
         s = sums[name]
-        print(f"  per update, {name}: {s['launches_per_update']} launches; forward "
+        print(f"  per {per}, {name}: {s['launches_per_update']} launches; forward "
               f"{s['fwd_ms']:.4f} ms (bound {s['fwd_bound_ms']:.4f}, {s['fwd_bound_by']}); "
-              f"backward {s['bwd_ms']:.4f} ms (bound {s['bwd_bound_ms']:.4f}, "
-              f"{s['bwd_bound_by']})")
+              f"backward [{s['bwd_route']}] {s['bwd_ms']:.4f} ms (bound "
+              f"{s['bwd_bound_ms']:.4f}, {s['bwd_bound_by']}; plain VJP "
+              f"{s['plain_bwd_ms']:.4f} ms)", flush=True)
     return rows, sums
 
 
@@ -2272,6 +2385,20 @@ class LossRecorder:
         self.cls.value_and_grad = self.orig
 
 
+def check_bwd_launches(label, r, want):
+    """The backward kernels of a finetuning CLI run: each launched once per
+    backward pass of its Function (``want`` of them per kernel), all in
+    float32."""
+    got = r["bwd_launches"]
+    print(f"  {label}: backward-kernel launches {got}, Function backward passes "
+          f"{r['backward_calls']}, by dtype {r['bwd_dtypes']}")
+    for k in got:
+        if not (got[k] == r["backward_calls"][k] == want[k]
+                and r["bwd_dtypes"][k]["float32"] == want[k]):
+            fail(f"{label}: {k} backward kernel launched {got[k]} times ({r['bwd_dtypes'][k]}), "
+                 f"Function backward passes {r['backward_calls'][k]}, expected {want[k]}")
+
+
 def cli_run(seed, root, execution, frames, custom):
     """The CLI with the custom YAML ``custom`` over ``frames`` frames of a
     sequence written under ``root``/data, recorded (``recorded_cli``)."""
@@ -2281,7 +2408,8 @@ def cli_run(seed, root, execution, frames, custom):
 
 def recorded_cli(execution, custom):
     """The CLI with the default YAML and ``custom``, recorded: host reads,
-    launches, Function backward passes, losses, peak memory."""
+    launches of the kernels and of the backward kernels, Function backward
+    passes, losses, peak memory."""
     from dfvo_torch.apis import run as cli
     from dfvo_torch.ops.correlation import CorrelationFunction
     from dfvo_torch.ops.headconv import HeadConvFunction
@@ -2292,6 +2420,7 @@ def recorded_cli(execution, custom):
     for fn in functions.values():
         fn.backward_calls = 0
     counters = reset_launch_counts()
+    bwd = backward_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = FrameRecorder() if execution == "frame" else ScanRecorder()
@@ -2309,7 +2438,11 @@ def recorded_cli(execution, custom):
             "launches": {k: fn.launches for k, fn in counters.items()},
             "variants": {k: dict(fn.variant_launches) for k, fn in counters.items()},
             "disp_launches": dict(counters["correlation"].disp_launches),
-            "backward_calls": {k: fn.backward_calls for k, fn in functions.items()}}
+            "backward_calls": {k: fn.backward_calls for k, fn in functions.items()},
+            "bwd_launches": {k: fn.launches for k, fn in bwd.items()},
+            "bwd_disp_launches": dict(bwd["correlation"].disp_launches),
+            "bwd_dtypes": {k: {str(d)[6:]: v for d, v in fn.dtype_launches.items()}
+                           for k, fn in bwd.items()}}
 
 
 def ft_cli_run(seed, execution, frames):
@@ -2371,6 +2504,7 @@ def ft_check_cli(r, execution, frames):
     if launches_ft != want_ft or r["backward_calls"] != want_ft:
         fail(f"finetune {execution}: update launches {launches_ft}, backward passes "
              f"{r['backward_calls']}, expected {want_ft}")
+    check_bwd_launches(f"finetune {execution}", r, want_ft)
     for k in ("correlation", "head_conv"):
         by = r["variants"][k]
         if by["tensor_core"] != infer[k] or by["cuda_core"] != want_ft[k]:
@@ -2406,6 +2540,7 @@ def ft_check_cli(r, execution, frames):
     return {"frames": frames, "updates": tracked, "ms_per_tracked_frame": per_frame,
             "host_reads": syncs, "host_reads_by_line": where, "launches": r["launches"],
             "launches_finetune": launches_ft, "backward_calls": r["backward_calls"],
+            "bwd_launches": r["bwd_launches"],
             "loss_first_last": [float(losses[0]), float(losses[-1])],
             "weights_moved_max": moved, "peak_mem_gib": r["peak"] / 2**30}
 
@@ -2578,11 +2713,12 @@ def ft_update_times(seed, cfg, out_dir):
 @phase("finetune")
 def finetune_phase(chk, seed, out_dir):
     """Online finetuning on the card: each kernel's Function at every
-    finetuning shape against the plain version's autograd; the CLI with
+    finetuning shape against the plain version's autograd (and each
+    backward kernel in bf16), the forward and backward times; the CLI with
     ablation_self_flow_online.yml plus depth finetuning in both executions;
     one update on the card against the CPU; the times."""
     cases = ft_cases(chk)
-    errs = ft_kernel_checks(cases)
+    errs, errs_bf16 = ft_kernel_checks(cases)
     rows, sums = ft_kernel_times(cases)
     # the networks at PyTorch's defaults from here on: cuDNN's TF32
     # convolutions on, float32 matmuls in float32 (the geometry's highp)
@@ -2600,8 +2736,8 @@ def finetune_phase(chk, seed, out_dir):
         times = ft_update_times(seed, cfg, out_dir)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    return {"kernel_errs": errs, "kernel_rows": rows, "kernel_sums": sums, "cli": cli,
-            "card_vs_cpu": parity, "update": times}
+    return {"kernel_errs": errs, "bwd_kernel_errs_bf16": errs_bf16, "kernel_rows": rows,
+            "kernel_sums": sums, "cli": cli, "card_vs_cpu": parity, "update": times}
 
 
 def ext_config(root, data, result, execution, finetune=True, edit=None):
@@ -2659,6 +2795,7 @@ def ext_check_cli(r, execution, frames, result):
           f"(expected {want_ft}); by variant {r['variants']}")
     if launches_ft != want_ft:
         fail(f"extend {execution}: update launches {launches_ft}, expected {want_ft}")
+    check_bwd_launches(f"extend {execution}", r, want_ft)
     for k in ("correlation", "head_conv"):
         by = r["variants"][k]
         if by["tensor_core"] != infer[k] or by["cuda_core"] != want_ft[k]:
@@ -2698,6 +2835,7 @@ def ext_check_cli(r, execution, frames, result):
             "df_vo_ms": df_vo,
             "modes": modes, "host_reads": syncs, "host_reads_by_line": where,
             "launches": r["launches"], "launches_finetune": launches_ft,
+            "bwd_launches": r["bwd_launches"],
             "loss_first_last": [float(losses[0]), float(losses[-1])],
             "peak_mem_gib": r["peak"] / 2**30}
 
@@ -2743,7 +2881,9 @@ def ext_iterative_scenes():
 @phase("extend")
 def extend_phase(chk, seed, out_dir):
     """The extended paper's configuration at 370x1226: each kernel against
-    its plain version at its shapes there and their times; the CLI with
+    its plain version at its shapes there and their times (and LiteFlowNet's
+    alone at N = 2, the flow export's); the flow finetuning's Functions at
+    the feed against the plain version's autograd; the CLI with
     finetuning in frame and scan execution; the iterative step on the card
     against the CPU (track scenes; bench.py's oracle drive through one
     chunk); the pose CNN (deep_pose tracking, depth consistency); the
@@ -2766,9 +2906,18 @@ def extend_phase(chk, seed, out_dir):
           f"feed {fe.depth_feed} (multiples of 32; the disparity is resized to the image)")
     check_main_path_shapes(chk, shapes, suffix=f" @{EXT_SIZE[1]}x{EXT_SIZE[0]}")
     rows, sums = kernel_times(timing_cases(chk, shapes))
+    # the flow export (generate_flow_prediction, KITTI flow's 375x1242 fed
+    # at the same 384x1248): LiteFlowNet alone on one pair, N = 2
+    export_rows, export_sums = kernel_times(
+        timing_cases(chk, (*shapes[:3], ()), batches=((2, 1, (6, 5, 4, 3, 2)),)),
+        per=f"flow export pair (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
+    # the flow finetuning's Functions at this feed (N = 2, the flow heads)
+    ft_errs, ft_errs_bf16 = ft_kernel_checks(ft_cases(chk, shapes=shapes, depth=False))
 
     result = {"size": list(EXT_SIZE), "flow_feed": list(fe.flow_feed),
-              "depth_feed": list(fe.depth_feed), "kernel_rows": rows, "kernel_sums": sums}
+              "depth_feed": list(fe.depth_feed), "kernel_rows": rows, "kernel_sums": sums,
+              "flow_export_kernel_rows": export_rows, "flow_export_kernel_sums": export_sums,
+              "ft_kernel_errs": ft_errs, "ft_bwd_kernel_errs_bf16": ft_errs_bf16}
     base = os.path.join(ROOT, "build", "chip_smoke", "extend")
     cli = {}
     for execution, frames in (("frame", EXT_FRAMES), ("scan", EXT_SCAN_FRAMES)):
@@ -3049,6 +3198,28 @@ def hd3_cases(chk, shapes, n, dtype):
     return cases
 
 
+def hd3_ft_cases(chk, shapes, n=2):
+    """The D = 4 cost volume's Function at HD3's five levels in one flow
+    update (float32, batch ``n``), as ``ft_cases`` gives its cases."""
+    from dfvo_torch.ops.correlation import (CorrelationFunction, correlation_backward_plain,
+                                            correlation_plain)
+    from dfvo_torch.ops.pallas_corr import correlation_backward_cuda, correlation_cuda
+
+    cases = []
+    for l, (h, w, c) in shapes:
+        f1, f2 = chk.randn((n, h, w, c)), chk.randn((n, h, w, c))
+        io = 4 * (2 * n * h * w * c + n * h * w * 81)
+        ops = 2 * n * h * w * 81 * c
+        cases.append(dict(
+            kernel="correlation", label=f"HD3 L{l} D=4 [{n}, {h}, {w}, {c}]",
+            fn=CorrelationFunction, plain=correlation_plain, kfn=correlation_cuda,
+            ins=(f1, f2), rest=(4, 1), calls=1, fwd_bound=bound(io, ops, PEAK_F32),
+            bwd_bound=bound(io + 4 * 2 * n * h * w * c, 2 * ops, PEAK_F32), lib_fwd=None,
+            lib_bwd=None, bwd_kfn=correlation_backward_cuda,
+            bwd_plain=correlation_backward_plain))
+    return cases
+
+
 def hd3_cli(seed, name, execution, frames, finetune):
     """The CLI with deep_flow.network: hd3 (and flow finetuning at scales
     1-5 for HD3_FT_PAIRS pairs), the default YAML's other options."""
@@ -3110,6 +3281,11 @@ def hd3_check_cli(r, execution, frames, finetune):
         fail(f"{label}: launches {r['launches']}, by window {r['disp_launches']}, by variant "
              f"{r['variants']}, backward passes {r['backward_calls']}; expected {want}, "
              f"correlation {want_corr}")
+    if finetune:
+        check_bwd_launches(label, r, want_ft)
+        if r["bwd_disp_launches"] != {3: 0, 4: want_ft["correlation"]}:
+            fail(f"{label}: backward cost volumes by window {r['bwd_disp_launches']}, expected "
+                 f"all {want_ft['correlation']} at D = 4")
     if execution == "frame":
         reads = RUN_HOST_READS[vo.drawer is not None]
         syncs, where = r["rec"].syncs, r["rec"].where
@@ -3142,6 +3318,7 @@ def hd3_check_cli(r, execution, frames, finetune):
             "df_vo_ms": df_vo, "host_reads": syncs, "host_reads_by_line": where,
             "launches": r["launches"], "d4_launches": r["disp_launches"][4],
             "d4_per_network_call": HD3_PER_CALL["correlation"],
+            "bwd_launches": r["bwd_launches"],
             "d4_per_update": HD3_FT_PER_UPDATE["correlation"],
             "variants": r["variants"], "peak_mem_gib": r["peak"] / 2**30}
 
@@ -3211,7 +3388,8 @@ def hd3_time(name, fn, out_dir, chunk=None):
 @phase("hd3")
 def hd3_phase(chk, seed, out_dir):
     """HD3 (deep_flow.network: hd3) at 192x640 bf16: the D = 4 cost volume
-    at HD3's five shapes against its plain version and its times; infer on
+    at HD3's five shapes against its plain version and its times, and its
+    Function with the backward kernel at a flow update's N = 2; infer on
     the card against the CPU; the CLI in both executions, with and without
     flow finetuning; bench.py's oracle drive through one chunk; one update
     on the card against the CPU; the times of infer, infer_chunk,
@@ -3238,7 +3416,15 @@ def hd3_phase(chk, seed, out_dir):
                             per=f"HD3 {per} network call")
         rows += r
         sums[per] = s["correlation_d4"]
+    # the Function of a flow update (N = 2, float32): forward, the backward
+    # kernel (and in bf16), against the plain version's autograd; times
+    ft = hd3_ft_cases(chk, shapes)
+    ft_errs, ft_errs_bf16 = ft_kernel_checks(ft)
+    ft_rows, ft_sums = ft_kernel_times(ft, per="HD3 flow update (D = 4, N = 2)")
     result = {"kernel_rows": rows, "kernel_sums": sums,
+              "ft_kernel_errs": ft_errs["correlation"],
+              "ft_bwd_kernel_err_bf16": ft_errs_bf16["correlation"], "ft_kernel_rows": ft_rows,
+              "ft_kernel_sums": ft_sums["correlation"],
               "infer_card_vs_cpu": hd3_infer_card_vs_cpu(seed)}
 
     cli, vos = {}, {}
@@ -3486,7 +3672,9 @@ def ms_update(seed, data, out_dir):
     (ablation_self_flow_online.yml on the default, float32, TF32 off): the
     loss and the flow gradient on the card against the CPU (FT_F32_LIMITS);
     then ``make_train_step`` on the card: its launches at N = 2S (float32
-    variants), CUDA-event ms, kernels, busy share and peak memory."""
+    variants, and a backward kernel per backward pass of the cost volume
+    and the head conv), CUDA-event ms, kernels, busy share and peak
+    memory."""
     from dfvo_torch.datasets import datasets as registry
     from dfvo_torch.parallel import MultiSeqRunner
     from dfvo_torch.utils import ConfigLoader
@@ -3539,17 +3727,22 @@ def ms_update(seed, data, out_dir):
         train(variables, state, ref, cur, pose)
 
     counters = reset_launch_counts()
+    bwd = backward_counts()
     step()
     torch.cuda.synchronize()
     by_batch = {k: dict(fn.batch_launches) for k, fn in counters.items()}
     variants = {k: dict(fn.variant_launches) for k, fn in counters.items()}
+    bwd_by_batch = {k: dict(fn.batch_launches) for k, fn in bwd.items()}
     want = {"correlation": {2 * p: 5}, "reg_dist_filter": {2 * p: 5}, "head_conv": {2 * p: 10}}
     print(f"  train step launches by batch size {by_batch} (expected {want}); by variant "
-          f"{variants}")
+          f"{variants}; backward kernels by batch size {bwd_by_batch}")
     if by_batch != want or any(variants[k][FT_VARIANT[k]] != sum(want[k].values())
                                for k in want):
         fail(f"multiseq train step launches {by_batch} / {variants}, expected {want} on "
              f"{FT_VARIANT}")
+    if bwd_by_batch != {k: want[k] for k in bwd}:
+        fail(f"multiseq train step backward kernels {bwd_by_batch}, expected "
+             f"{ {k: want[k] for k in bwd} }")
     syncs = count_syncs(step)
     ms = time_cuda(step, reps=1, rounds=3)
     torch.cuda.reset_peak_memory_stats()
@@ -3561,7 +3754,8 @@ def ms_update(seed, data, out_dir):
           f"sequence, {syncs} host syncs, peak {peak:.2f} GiB")
     return {"sequences": p, "loss_rel": loss_rel, "flow_grad_rel": grad_rel,
             "limits": {k: FT_F32_LIMITS[k] for k in ("loss_rel", "flow_grad_rel")},
-            "launches_by_batch": by_batch, "ms": ms, "ms_per_sequence": ms / p,
+            "launches_by_batch": by_batch, "bwd_launches_by_batch": bwd_by_batch,
+            "ms": ms, "ms_per_sequence": ms / p,
             "host_syncs": syncs, "peak_mem_gib": peak,
             **{k: v for k, v in prof.items() if k != "top"}}
 
@@ -3636,8 +3830,9 @@ def ms_kernels(chk):
     shapes (LiteFlowNet at N = 2S = 22, the disparity heads at N = S = 11;
     float32, then bf16 on the main-path variant), each kernel's Function at
     the sequence-averaged update's N = 2 * MS_PARITY_S (float32, output and
-    input gradients against the plain version's autograd), and the kernels'
-    times per network call of the batched frame step. The chunk step runs
+    input gradients against the plain version's autograd; the backward
+    kernels also in bf16) with its forward and backward times, and the
+    kernels' times per network call of the batched frame step. The chunk step runs
     the scan phase's N = 64 / 32, which the kernels phase checks."""
     s = len(MS_SEQS)
     check_main_path_shapes(chk, (CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS),
@@ -3647,13 +3842,17 @@ def ms_kernels(chk):
         if "multiseq" in label:
             errs[kernel]["f32"] = max(errs[kernel]["f32"], e32)
             errs[kernel]["bf16"] = max(errs[kernel]["bf16"], e16)
-    update = ft_kernel_checks(ft_cases(chk, n=2 * MS_PARITY_S, depth=False))
+    ft = ft_cases(chk, n=2 * MS_PARITY_S, depth=False)
+    update, update_bf16 = ft_kernel_checks(ft)
+    update_rows, update_sums = ft_kernel_times(
+        ft, per=f"sequence-averaged update (N = {2 * MS_PARITY_S})")
     rows, sums = kernel_times(timing_cases(chk, batches=((2 * s, 1, (6, 5, 4, 3, 2)),),
                                            depth_n=s),
                               per=f"batched frame step network call (S = {s})")
     return {"max_abs_err": errs,
             "update_f32_err": {k: {"out": v[0], "input_grads": v[1]} for k, v in update.items()},
-            "kernel_rows": rows, "kernel_sums": sums}
+            "update_bwd_bf16_err": update_bf16, "update_rows": update_rows,
+            "update_sums": update_sums, "kernel_rows": rows, "kernel_sums": sums}
 
 
 @phase("multiseq")
@@ -3984,7 +4183,9 @@ def hd3_summary(hd3, smi):
             "steps": hd3["steps"], "oracle_chunk": hd3["oracle_chunk"],
             "infer_card_vs_cpu": hd3["infer_card_vs_cpu"],
             "update_card_vs_cpu": hd3["update_card_vs_cpu"],
-            "correlation_d4": hd3["kernel_sums"], "nvidia_smi": smi}
+            "correlation_d4": hd3["kernel_sums"], "ft_kernel_errs": hd3["ft_kernel_errs"],
+            "ft_bwd_kernel_err_bf16": hd3["ft_bwd_kernel_err_bf16"],
+            "ft_kernel_sums": hd3["ft_kernel_sums"], "nvidia_smi": smi}
 
 
 def ext_summary(extend, smi):
@@ -3998,7 +4199,9 @@ def ext_summary(extend, smi):
         "iterative_scenes": extend["iterative_scenes"],
         "iterative_chunk_card_vs_cpu": extend["iterative_chunk_card_vs_cpu"],
         "pose_cnn": extend["pose_cnn"], "kernel_sums": extend["kernel_sums"],
-        "nvidia_smi": smi}
+        "flow_export_kernel_sums": extend["flow_export_kernel_sums"],
+        "ft_kernel_errs": extend["ft_kernel_errs"],
+        "ft_bwd_kernel_errs_bf16": extend["ft_bwd_kernel_errs_bf16"], "nvidia_smi": smi}
 
 
 def main():
@@ -4091,6 +4294,40 @@ def main():
         **{k: d4["infer_chunk"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms")},
         "per_infer_n2": d4["infer"], "per_update_f32": d4["update"]})
+    # the backward kernels of the finetuning update: times, bounds, the
+    # plain VJP they replaced and, for the head conv, cuDNN's
+    # convolution_backward (the port never calls it), summed per update at
+    # 192x640 (float32, N = 2 / 1); launches over both finetuning CLI runs
+    bwd_sources = {
+        "correlation": ("dfvo_torch/csrc/correlation_bwd.cu",
+                        "dfvo_tpu/ops/pallas_corr.py:215 (_corr_bwd, the backward of the "
+                        "custom_vjp around the Pallas kernels; not itself a Pallas kernel)"),
+        "head_conv": ("dfvo_torch/csrc/headconv_bwd.cu",
+                      "dfvo_tpu/ops/headconv.py:254 (_hc_bwd, the backward of the "
+                      "custom_vjp around the Pallas kernel; not itself a Pallas kernel)"),
+    }
+    for name, (src, rep) in bwd_sources.items():
+        ft = finetune["kernel_sums"][name]
+        ms_upd = multiseq["kernels"]["update_sums"][name]
+        entry = {
+            "name": f"{name}_backward", "route": "cuda", "source": src, "replaces": rep,
+            "variant": "cuda_core (f32 FMA)",
+            "launches": sum(finetune["cli"][x]["bwd_launches"][name] for x in ("frame", "scan")),
+            "launches_per_update": ft["launches_per_update"],
+            "max_abs_err": finetune["kernel_errs"][name][1],
+            "max_abs_err_bf16": finetune["bwd_kernel_errs_bf16"][name],
+            "ms": ft["bwd_ms"], "plain_ms": ft["plain_bwd_ms"], "bound_ms": ft["bwd_bound_ms"],
+            "bound_by": ft["bwd_bound_by"], "library_ms": ft["library_bwd_ms"],
+            "launches_extend": sum(extend["cli"][x]["bwd_launches"][name]
+                                   for x in ("frame", "scan")),
+            "at_multiseq_update_n8": {k: ms_upd[k] for k in (
+                "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}}
+        if name == "correlation":
+            entry["launches_hd3"] = sum(hd3["cli"][x]["bwd_launches"][name]
+                                        for x in ("frame_finetune", "scan_finetune"))
+            entry["at_hd3_d4_update"] = {k: hd3["ft_kernel_sums"][k] for k in (
+                "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by")}
+        kernels.append(entry)
     report = {
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "infer_ms_per_frame": infer_ms, "infer_chunk_ms_per_frame": chunk_ms,
@@ -4142,7 +4379,7 @@ def main():
     print(json.dumps({"hd3": hd3_summary(hd3, smi)}))
     print(json.dumps({"multiseq": {
         **multiseq, "nvidia_smi": smi,
-        "kernels": {k: v for k, v in multiseq["kernels"].items() if k != "kernel_rows"}}}))
+        "kernels": {k: v for k, v in multiseq["kernels"].items() if k not in ("kernel_rows", "update_rows")}}}))
     print(json.dumps({"datasets": {
         "cli": datasets["cli"], "infer_card_vs_cpu": datasets["infer_card_vs_cpu"],
         "flow_export": datasets["flow_export"], "seconds_by_part": datasets["seconds_by_part"],

@@ -32,6 +32,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Element strides of an NHWC map with unit channel stride.
+struct PixStrides {
+  long long n, h, w;
+};
+
 // elements of T in one 16-byte vector load
 template <typename T>
 inline constexpr int kVec = 16 / static_cast<int>(sizeof(T));

@@ -72,11 +72,6 @@ __device__ __forceinline__ float dot_row(const float* __restrict__ row,
   return s;
 }
 
-// Element strides of an NHWC map with unit channel stride.
-struct PixStrides {
-  long long n, h, w;
-};
-
 template <typename T, int D, bool VEC>
 __global__ void __launch_bounds__(kCorrWarps * 32)
     correlation_kernel(const T* __restrict__ f1, PixStrides s1,

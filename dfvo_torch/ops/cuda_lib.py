@@ -25,7 +25,8 @@ from .kernel_grad import records_grad
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "dfvo_torch_kernels"
-SOURCES = ("correlation.cu", "regfilter.cu", "headconv.cu")
+SOURCES = ("correlation.cu", "correlation_bwd.cu", "regfilter.cu", "headconv.cu",
+           "headconv_bwd.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -53,6 +54,17 @@ _SIGNATURES = {
     # out_w, k, cout, pad, stream (bf16 only)
     "dfvo_headconv_tc": (_P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P)
     + (_I,) * 9 + (_P,),
+    # f1, s1n, s1h, s1w, f2, s2n, s2h, s2w, g, df1, d1n, d1h, d1w, df2, d2n,
+    # d2h, d2w, n, h, w, c, max_disp, dtype, stream
+    "dfvo_correlation_bwd": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _L, _L, _L, _P, _L, _L, _L)
+    + (_I,) * 6 + (_P,),
+    # n, in_h, in_w -> rows of the weight-gradient workspace
+    "dfvo_headconv_bwd_parts": (_I,) * 3,
+    # x, sxn, sxh, sxw, wts, sw0..sw3, g, dx, part, n, in_h, in_w, cin, out_h,
+    # out_w, k, cout, pad, need_dw, need_db, dtype, stream
+    "dfvo_headconv_bwd": (_P, _L, _L, _L, _P, _L, _L, _L, _L, _P, _P, _P) + (_I,) * 12 + (_P,),
+    # part, nparts, dw, sw0..sw3, wdtype, db, bdtype, k, cin, cout, stream
+    "dfvo_headconv_bwd_reduce": (_P, _I, _P, _L, _L, _L, _L, _I, _P) + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -163,7 +175,8 @@ def forbid_grad(name, *tensors):
         raise RuntimeError(
             f"{name}: the raw CUDA kernel wrapper has no backward pass; call it under "
             "torch.no_grad(), or call the op's dispatcher, whose autograd Function "
-            "differentiates the plain version"
+            "runs the backward kernel (correlation, head_conv) or the plain version's "
+            "VJP (reg_dist_filter)"
         )
 
 

@@ -12,6 +12,11 @@ views to them through their strides, without a copy.
 Two variants, chosen by :func:`correlation_variant` from dtype and layout:
 ``tensor_core`` (bf16, C a multiple of 16 up to 256, 16-byte aligned
 pixels: the main path) and ``cuda_core`` (float32 and everything else).
+
+:func:`correlation_backward_cuda` launches the backward kernel
+(``csrc/correlation_bwd.cu``): both input gradients in one launch, by the
+same stride reduction (the gradients of the subsampled views, written
+through their strides into zero-filled full-size gradients).
 """
 
 import collections
@@ -48,6 +53,20 @@ def correlation_variant(f1, f2):
     return "cuda_core"
 
 
+def _check_args(name, f1, f2, max_disp, stride):
+    if f1.shape != f2.shape or f1.dim() != 4 or f1.dtype != f2.dtype:
+        raise ValueError(
+            f"{name}: f1 {tuple(f1.shape)} {f1.dtype} and f2 "
+            f"{tuple(f2.shape)} {f2.dtype} must be equal-shape NHWC"
+        )
+    if max_disp not in (3, 4):
+        raise ValueError(f"{name}: max_disp must be 3 or 4, got {max_disp}")
+    if stride < 1:
+        raise ValueError(f"{name}: stride must be >= 1, got {stride}")
+    if f1.shape[3] > MAX_CHANNELS:
+        raise ValueError(f"{name}: at most {MAX_CHANNELS} channels, got {f1.shape[3]}")
+
+
 def correlation_cuda(f1, f2, max_disp=3, stride=1):
     """Launch a CUDA cost-volume kernel; same semantics as
     :func:`dfvo_torch.ops.correlation.correlation_plain`.
@@ -58,21 +77,11 @@ def correlation_cuda(f1, f2, max_disp=3, stride=1):
     """
     cuda_lib.forbid_grad("correlation", f1, f2)
     cuda_lib.require_cuda("correlation", f1, f2)
-    if f1.shape != f2.shape or f1.dim() != 4 or f1.dtype != f2.dtype:
-        raise ValueError(
-            f"correlation: f1 {tuple(f1.shape)} {f1.dtype} and f2 "
-            f"{tuple(f2.shape)} {f2.dtype} must be equal-shape NHWC"
-        )
-    if max_disp not in (3, 4):
-        raise ValueError(f"correlation: max_disp must be 3 or 4, got {max_disp}")
-    if stride < 1:
-        raise ValueError(f"correlation: stride must be >= 1, got {stride}")
+    _check_args("correlation", f1, f2, max_disp, stride)
     if stride != 1:
         f1 = f1[:, ::stride, ::stride, :]
         f2 = f2[:, ::stride, ::stride, :]
     n, h, w, c = f1.shape
-    if c > MAX_CHANNELS:
-        raise ValueError(f"correlation: at most {MAX_CHANNELS} channels, got {c}")
     s1, s2 = pixel_strides(f1), pixel_strides(f2)
     kk = (2 * max_disp + 1) ** 2
     out = torch.empty((n, h, w, kk), dtype=f1.dtype, device=f1.device)
@@ -105,3 +114,56 @@ correlation_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
 correlation_cuda.disp_launches = {3: 0, 4: 0}
 # by batch size N
 correlation_cuda.batch_launches = collections.Counter()
+
+
+def correlation_backward_cuda(grad, f1, f2, max_disp=3, stride=1, needs=(True, True)):
+    """Launch the cost volume's backward kernel (``csrc/correlation_bwd.cu``);
+    same semantics as
+    :func:`dfvo_torch.ops.correlation.correlation_backward_plain`.
+
+    Takes the cotangent ``grad`` [N, ceil(H/s), ceil(W/s), (2D+1)²] and the
+    forward's inputs as :func:`correlation_cuda` takes them, on one CUDA
+    device; raises for anything else. Returns (df1, df2) in the inputs'
+    dtype, None where ``needs`` is False; one launch (stride s > 1 adds the
+    zero fill of each full-size gradient)."""
+    cuda_lib.require_cuda("correlation backward", grad, f1, f2)
+    _check_args("correlation backward", f1, f2, max_disp, stride)
+    kk = (2 * max_disp + 1) ** 2
+    f1v, f2v = f1[:, ::stride, ::stride, :], f2[:, ::stride, ::stride, :]
+    n, h, w, c = f1v.shape
+    if tuple(grad.shape) != (n, h, w, kk):
+        raise ValueError(f"correlation backward: cotangent {tuple(grad.shape)}, expected "
+                         f"{(n, h, w, kk)}")
+    s1, s2 = (pixel_strides(t, "correlation backward") for t in (f1v, f2v))
+    grads = []
+    for need, t in zip(needs, (f1, f2)):
+        if not need:
+            grads.append(None)
+        elif stride == 1:
+            grads.append(torch.empty(t.shape, dtype=t.dtype, device=t.device))
+        else:
+            grads.append(torch.zeros(t.shape, dtype=t.dtype, device=t.device))
+    if not any(needs) or grad.numel() == 0:
+        return tuple(grads)
+    views = [None if t is None else t[:, ::stride, ::stride, :] for t in grads]
+    d1, d2 = (pixel_strides(v) if v is not None else (0, 0, 0) for v in views)
+    grad = grad.to(f1.dtype).contiguous()
+    lib = cuda_lib.load()
+    rc = lib.dfvo_correlation_bwd(
+        f1v.data_ptr(), *s1, f2v.data_ptr(), *s2, grad.data_ptr(),
+        None if views[0] is None else views[0].data_ptr(), *d1,
+        None if views[1] is None else views[1].data_ptr(), *d2,
+        n, h, w, c, max_disp, cuda_lib.dtype_code(f1.dtype), cuda_lib.stream_of(f1),
+    )
+    cuda_lib.check(rc, "correlation backward")
+    correlation_backward_cuda.launches += 1
+    correlation_backward_cuda.dtype_launches[f1.dtype] += 1
+    correlation_backward_cuda.disp_launches[max_disp] += 1
+    correlation_backward_cuda.batch_launches[n] += 1
+    return tuple(grads)
+
+
+correlation_backward_cuda.launches = 0
+correlation_backward_cuda.dtype_launches = {torch.float32: 0, torch.bfloat16: 0}
+correlation_backward_cuda.disp_launches = {3: 0, 4: 0}
+correlation_backward_cuda.batch_launches = collections.Counter()

@@ -21,7 +21,9 @@ Regularization), and the two steps are one op:
   through :class:`RegDistFilterFunction` when a gradient is recorded, whose
   backward is the VJP of ``reg_dist_filter_plain`` with respect to the raw
   logits, the flow and the four parameters (the JAX package's
-  normalisation differentiated by autodiff, then ``_rf_bwd``).
+  normalisation differentiated by autodiff, then ``_rf_bwd``), on the
+  card too: the filter has no backward kernel yet, unlike the cost volume
+  and the head conv.
 """
 
 import collections
