@@ -80,18 +80,19 @@ seconds, none caught:
    flow heads and the four disparity heads) against autograd of the plain
    version on the same inputs and cotangent, launching the float32
    variants (cuda_core; async_tile for the filter) and, in the backward,
-   the backward kernels of the cost volume and the head conv once each
-   (the filter's backward is the plain VJP); the backward kernels also in
-   bf16 at those shapes against their plain versions; each one's forward
-   and backward device ms beside their bounds, the plain VJP's and, for
-   the head conv, cuDNN's conv2d and convolution_backward. Then the CLI with
+   each one's backward kernel once; the filter's also at level 2 with ties
+   at the minimal |raw| and with cotangents that are a permuted view and an
+   expanded (stride-0) one; the backward kernels also in bf16 at those
+   shapes against their plain versions; each one's forward and backward
+   device ms beside their bounds, the plain VJP's and, for the head conv,
+   cuDNN's conv2d and convolution_backward. Then the CLI with
    ablation_self_flow_online.yml's options plus depth finetuning and
    save_model, in frame execution over FT_FRAMES frames and in scan
    execution over FT_SCAN_FRAMES frames: one update per tracked frame, the
    weights moved and the running statistics fixed, finite losses,
    finetuned_model/ written, launches (inference + 5 / 5 / 14 float32
-   launches, as many Function backward passes and 5 / 14 backward-kernel
-   launches per update) and host
+   launches, as many Function backward passes and 5 / 5 / 14
+   backward-kernel launches per update) and host
    reads (3 per frame; 2 per chunk and 1 for the saved model) under CUDA
    sync debug mode. Then one update at 192x640 on the card (TF32 off, and
    cuDNN's TF32 convolutions, PyTorch's default) against the CPU, beside
@@ -105,12 +106,13 @@ seconds, none caught:
    times per infer_chunk call beside the bounds, and LiteFlowNet's per
    pair at N = 2 (the flow export's feed); the flow finetuning's Functions
    at N = 2 with the backward kernels (float32, and the backward kernels
-   in bf16) against autograd of the plain version; the CLI with flow
+   in bf16) against autograd of the plain version, and the filter's
+   forward and backward times per update; the CLI with flow
    finetuning (scales 1-5), rigid-flow keypoints and iterative scale in
    frame execution over EXT_FRAMES frames and in scan execution over
    EXT_SCAN_FRAMES frames (one full chunk of 32 and a padded one): finite
    poses, one update per tracked frame, launches (inference + 5 / 5 / 10
-   float32 launches and 5 / 10 backward-kernel launches per update) and
+   float32 launches and 5 / 5 / 10 backward-kernel launches per update) and
    host reads (3 per frame with the
    drawer; 2 per chunk) under CUDA sync debug mode, the timer scopes and
    peak memory. Then the iterative step (iterative scale, the E and PnP
@@ -190,8 +192,9 @@ frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
 finetuning, a JSON line of the extend phase, a JSON line of the hd3 phase,
 a JSON line of the multiseq phase, a JSON line of the datasets phase, a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
-own, correlation_d4, and the backward kernels as correlation_backward and
-head_conv_backward, timed per finetuning update; launches from the slice phase, from the CLI run as launches_cli, from the
+own, correlation_d4, and the backward kernels as correlation_backward,
+reg_dist_filter_backward and head_conv_backward, timed per finetuning
+update; launches from the slice phase, from the CLI run as launches_cli, from the
 scan execution as launches_scan, from the finetuning updates of both CLI
 runs as launches_finetune and from the extend phase's two CLI runs as
 launches_extend, from the multiseq phase's two CLI runs and its update by
@@ -648,12 +651,14 @@ def launch_counts():
 
 
 def backward_counts():
-    """The backward kernels' wrappers, by the forward kernel they belong to
-    (the filter's backward is still the plain VJP and launches none)."""
+    """The backward kernels' wrappers, by the forward kernel they belong to."""
     from dfvo_torch.ops.headconv import head_conv_backward_cuda
     from dfvo_torch.ops.pallas_corr import correlation_backward_cuda
+    from dfvo_torch.ops.regfilter import reg_dist_filter_backward_cuda
 
-    return {"correlation": correlation_backward_cuda, "head_conv": head_conv_backward_cuda}
+    return {"correlation": correlation_backward_cuda,
+            "reg_dist_filter": reg_dist_filter_backward_cuda,
+            "head_conv": head_conv_backward_cuda}
 
 
 def reset_launch_counts():
@@ -2106,15 +2111,13 @@ def ft_cases(chk, n=2, depth=True, shapes=None):
     wrapper, the tensor inputs, the other arguments, calls per update, the
     forward and backward bounds, the library forward and backward (the head
     conv's cuDNN calls), and the backward kernel's wrapper and its plain
-    version (None for the filter, whose backward is the plain VJP)."""
+    version."""
     from dfvo_torch.ops.correlation import (CorrelationFunction, correlation_backward_plain,
                                             correlation_plain)
     from dfvo_torch.ops.headconv import (HeadConvFunction, head_conv_backward_cuda,
                                          head_conv_backward_plain, head_conv_cuda,
                                          head_conv_plain)
     from dfvo_torch.ops.pallas_corr import correlation_backward_cuda, correlation_cuda
-    from dfvo_torch.ops.regfilter import (RegDistFilterFunction, reg_dist_filter_cuda,
-                                          reg_dist_filter_plain)
 
     corr_shapes, reg_shapes, lfn_heads, depth_heads = shapes or (
         CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS)
@@ -2135,20 +2138,7 @@ def ft_cases(chk, n=2, depth=True, shapes=None):
             lib_fwd=None, lib_bwd=None, bwd_kfn=correlation_backward_cuda,
             bwd_plain=correlation_backward_plain))
     for lvl, (h, w), k in reg_shapes:
-        kk = k * k
-        ins = (chk.randn((n, h, w, kk), 2.0), chk.randn((n, h, w, 2), 4.0),
-               chk.randn((1, kk, 1, 1)), chk.randn((1,)), chk.randn((1, kk, 1, 1)),
-               chk.randn((1,)))
-        io = 4 * (n * h * w * (kk + 4) + 2 * kk + 2)
-        ops = n * h * w * (11 * kk + 6)
-        cases.append(dict(
-            kernel="reg_dist_filter", label=f"L{lvl} k{k} [{n}, {h}, {w}]",
-            fn=RegDistFilterFunction, plain=reg_dist_filter_plain, kfn=reg_dist_filter_cuda,
-            ins=ins, rest=(k,), calls=1, fwd_bound=bound(io, ops, PEAK_F32),
-            # read the inputs and the cotangent, write a gradient of each
-            # input; the VJP counted as twice the forward's work
-            bwd_bound=bound(2 * io, 2 * ops, PEAK_F32), lib_fwd=None, lib_bwd=None,
-            bwd_kfn=None, bwd_plain=None))
+        cases.append(reg_ft_case(chk, f"L{lvl} k{k} [{n}, {h}, {w}]", n, h, w, k))
     heads = [(name, (n, *hwc), cout, k, pre, 2) for name, hwc, cout, k, pre in lfn_heads]
     heads += [(name, (1, *hwc), cout, k, pre, 1) for name, hwc, cout, k, pre in depth_heads
               if depth]
@@ -2180,6 +2170,61 @@ def ft_cases(chk, n=2, depth=True, shapes=None):
             lib_fwd=lib_fwd, lib_bwd=lib_bwd, bwd_kfn=head_conv_backward_cuda,
             bwd_plain=head_conv_backward_plain))
     return cases
+
+
+def reg_ft_case(chk, label, n, h, w, k, raw=None, cot=None):
+    """The filter's case of ``ft_cases`` (raw logits drawn unless given;
+    ``cot``: the cotangent to use, drawn by ``ft_kernel_checks`` if None)."""
+    from dfvo_torch.ops.regfilter import (RegDistFilterFunction, reg_dist_filter_backward_cuda,
+                                          reg_dist_filter_backward_plain, reg_dist_filter_cuda,
+                                          reg_dist_filter_plain)
+
+    kk = k * k
+    raw = chk.randn((n, h, w, kk), 2.0) if raw is None else raw
+    ins = (raw, chk.randn((n, h, w, 2), 4.0), chk.randn((1, kk, 1, 1)), chk.randn((1,)),
+           chk.randn((1, kk, 1, 1)), chk.randn((1,)))
+    io = 4 * (n * h * w * (kk + 4) + 2 * kk + 2)
+    ops = n * h * w * (11 * kk + 6)
+    return dict(
+        kernel="reg_dist_filter", label=label, fn=RegDistFilterFunction,
+        plain=reg_dist_filter_plain, kfn=reg_dist_filter_cuda, ins=ins, rest=(k,), calls=1,
+        fwd_bound=bound(io, ops, PEAK_F32),
+        # read raw, the flow, the cotangent and the parameters once, write a
+        # gradient of each input; the operations counted as twice the
+        # forward's
+        bwd_bound=bound(4 * (n * h * w * (2 * kk + 6) + 4 * kk + 4), 2 * ops, PEAK_F32),
+        lib_fwd=None, lib_bwd=None, bwd_kfn=reg_dist_filter_backward_cuda,
+        bwd_plain=reg_dist_filter_backward_plain, cot=cot)
+
+
+def reg_ft_edge_cases(chk, n=2, h=96, w=320, k=7):
+    """The filter's case at the update's level 2 three more times for
+    ``ft_kernel_checks``: with ties at the minimal |raw| (at every pixel the
+    minimal tap j and tap j + 1 set to its negation, and at every other
+    column tap j + 2 set to it too: the bias's cotangent goes to the tied
+    taps in equal parts), and with cotangents that are not contiguous: the
+    permuted view of an [N,2,H,W] tensor and an expanded one (stride 0, as
+    autograd hands on the cotangent of a sum), which the kernel reads
+    through their strides."""
+    kk = k * k
+    raw = chk.randn((n, h, w, kk), 2.0)
+    j = raw.abs().argmin(dim=-1, keepdim=True)
+    v = torch.gather(raw, -1, j)
+    raw.scatter_(-1, (j + 1) % kk, -v)
+    third = (j + 2) % kk
+    every_other = (torch.arange(w, device=raw.device) % 2 == 0).view(1, 1, w, 1)
+    raw.scatter_(-1, third, torch.where(every_other, v, torch.gather(raw, -1, third)))
+    sq = raw * raw
+    ties = (sq == sq.amin(dim=-1, keepdim=True)).sum(dim=-1)
+    if not (ties.min().item() >= 2 and ties.max().item() == 3):
+        fail(f"finetune reg_dist_filter: the tie case has {ties.min().item()} to "
+             f"{ties.max().item()} tied taps per pixel, expected 2 and 3")
+    label = f"L2 k{k} [{n}, {h}, {w}]"
+    return [reg_ft_case(chk, f"{label} ties", n, h, w, k, raw=raw),
+            reg_ft_case(chk, f"{label} permuted cot", n, h, w, k,
+                        cot=chk.randn((n, 2, h, w)).permute(0, 2, 3, 1)),
+            reg_ft_case(chk, f"{label} expanded cot", n, h, w, k,
+                        cot=chk.randn((1, 1, 1, 2)).expand(n, h, w, 2))]
 
 
 def ft_bwd_bf16(case, cot):
@@ -2214,11 +2259,10 @@ def ft_bwd_bf16(case, cot):
 
 def ft_kernel_checks(cases):
     """Each case through its Function on the card (the float32 kernel, then
-    the backward: the backward kernel, launched once, for the cost volume
-    and the head conv; the plain version's VJP for the filter) against
-    autograd of the plain version on the same inputs and cotangent: the
-    output within 1e-4·max(1, |ref|) and each input gradient within
-    1e-4·max(1, |ref|); then each backward kernel in bf16
+    the backward: the backward kernel, launched once) against autograd of
+    the plain version on the same inputs and cotangent (the case's ``cot``,
+    or drawn): the output within 1e-4·max(1, |ref|) and each input gradient
+    within 1e-4·max(1, |ref|); then each backward kernel in bf16
     (``ft_bwd_bf16``). Returns {kernel: (forward err, backward err)} and
     the worst bf16 backward error per kernel."""
     counters = launch_counts()
@@ -2231,18 +2275,18 @@ def ft_kernel_checks(cases):
         leaves = [t.detach().clone().requires_grad_(True) for t in ins]
         before = dict(counters[kernel].variant_launches)
         calls = fn_cls.backward_calls
-        bwd_before = bwd[kernel].dtype_launches[torch.float32] if kernel in bwd else 0
+        bwd_before = bwd[kernel].dtype_launches[torch.float32]
         out = fn_cls.apply(*leaves, *rest)
         after = counters[kernel].variant_launches
         ran = [v for v in after if after[v] != before[v]]
         if ran != [FT_VARIANT[kernel]]:
             fail(f"finetune {kernel} {label}: ran {ran}, not {FT_VARIANT[kernel]}")
-        cot = torch.randn_like(out)
+        cot = torch.randn_like(out) if case.get("cot") is None else case["cot"]
         grads = torch.autograd.grad(out, leaves, cot)
         if fn_cls.backward_calls != calls + 1:
             fail(f"finetune {kernel} {label}: the Function's backward did not run")
-        launched = bwd[kernel].dtype_launches[torch.float32] - bwd_before if kernel in bwd else 0
-        if kernel in bwd and launched != 1:
+        launched = bwd[kernel].dtype_launches[torch.float32] - bwd_before
+        if launched != 1:
             fail(f"finetune {kernel} {label}: the backward kernel launched {launched} times "
                  "in one backward pass, expected 1")
         ref_leaves = [t.detach().clone().requires_grad_(True) for t in ins]
@@ -2259,23 +2303,19 @@ def ft_kernel_checks(cases):
             errs.append(err)
         worst[kernel][0] = max(worst[kernel][0], errs[0])
         worst[kernel][1] = max(worst[kernel][1], max(errs[1:]))
-        line = (f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
-                f"input grads err {max(errs[1:]):.2e} "
-                + ("(backward kernel)" if kernel in bwd else "(plain VJP)"))
-        if kernel in bwd:
-            e16 = ft_bwd_bf16(case, cot)
-            worst_bf16[kernel] = max(worst_bf16[kernel], e16)
-            line += f"; bf16 backward kernel ok, max abs err {e16:.2e}"
-        print(line, flush=True)
+        e16 = ft_bwd_bf16(case, cot)
+        worst_bf16[kernel] = max(worst_bf16[kernel], e16)
+        print(f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
+              f"input grads err {max(errs[1:]):.2e} (backward kernel); bf16 backward kernel "
+              f"ok, max abs err {e16:.2e}", flush=True)
     return worst, worst_bf16
 
 
 def ft_kernel_times(cases, per="update"):
     """Device ms (torch.profiler) of each case's float32 kernel forward and
-    of its backward as the Function runs it (the backward kernel for the
-    cost volume and the head conv; the plain version's VJP, the recomputed
-    forward and its gradients, for the filter), beside the plain forward,
-    the plain VJP, the library calls and the bounds; summed per ``per``."""
+    of its backward kernel, beside the plain forward, the plain version's
+    VJP (autograd of the recomputed forward), the library calls and the
+    bounds; summed per ``per``."""
     rows = []
     for case in cases:
         kernel, label, plain, kfn = case["kernel"], case["label"], case["plain"], case["kfn"]
@@ -2300,18 +2340,14 @@ def ft_kernel_times(cases, per="update"):
                    if lbwd else None,
                    "fwd_bound_ms": bfwd[0], "fwd_bound_by": bfwd[1],
                    "bwd_bound_ms": bbwd[0], "bwd_bound_by": bbwd[1],
-                   "bwd_route": "kernel" if bkfn else "plain VJP"}
-            if bkfn:
-                row["bwd_ms"] = device_ms(lambda: bkfn(cot, *ins, *rest), label=f"{label} bwd")
+                   "bwd_ms": device_ms(lambda: bkfn(cot, *ins, *rest), label=f"{label} bwd")}
         row["plain_bwd_ms"] = device_ms(vjp, reps=3, label=f"{label} plain bwd")
-        if not bkfn:
-            row["bwd_ms"] = row["plain_bwd_ms"]
         rows.append(row)
         lf = "none" if lfwd is None else f"{row['library_fwd_ms']:.4f}"
         lb = "none" if lbwd is None else f"{row['library_bwd_ms']:.4f}"
         print(f"  {kernel:16s} {label:32s} fwd {row['fwd_ms']:.4f} (bound {bfwd[0]:.4f} "
               f"{bfwd[1]}, plain {row['plain_fwd_ms']:.4f}, library {lf})  bwd "
-              f"[{row['bwd_route']}] {row['bwd_ms']:.4f} (bound {bbwd[0]:.4f} {bbwd[1]}, "
+              f"{row['bwd_ms']:.4f} (bound {bbwd[0]:.4f} {bbwd[1]}, "
               f"plain VJP {row['plain_bwd_ms']:.4f}, library {lb})  x{calls}", flush=True)
     sums = {}
     for name in sorted({r["kernel"] for r in rows}, key=list(PER_CALL).index):
@@ -2330,13 +2366,13 @@ def ft_kernel_times(cases, per="update"):
                       "fwd_ms": tot("fwd_ms"), "plain_fwd_ms": tot("plain_fwd_ms"),
                       "fwd_bound_ms": tot("fwd_bound_ms"), "fwd_bound_by": by("fwd"),
                       "library_fwd_ms": tot("library_fwd_ms"),
-                      "bwd_route": mine[0]["bwd_route"], "bwd_ms": tot("bwd_ms"),
+                      "bwd_ms": tot("bwd_ms"),
                       "plain_bwd_ms": tot("plain_bwd_ms"), "bwd_bound_ms": tot("bwd_bound_ms"),
                       "bwd_bound_by": by("bwd"), "library_bwd_ms": tot("library_bwd_ms")}
         s = sums[name]
         print(f"  per {per}, {name}: {s['launches_per_update']} launches; forward "
               f"{s['fwd_ms']:.4f} ms (bound {s['fwd_bound_ms']:.4f}, {s['fwd_bound_by']}); "
-              f"backward [{s['bwd_route']}] {s['bwd_ms']:.4f} ms (bound "
+              f"backward {s['bwd_ms']:.4f} ms (bound "
               f"{s['bwd_bound_ms']:.4f}, {s['bwd_bound_by']}; plain VJP "
               f"{s['plain_bwd_ms']:.4f} ms)", flush=True)
     return rows, sums
@@ -2714,11 +2750,12 @@ def ft_update_times(seed, cfg, out_dir):
 def finetune_phase(chk, seed, out_dir):
     """Online finetuning on the card: each kernel's Function at every
     finetuning shape against the plain version's autograd (and each
-    backward kernel in bf16), the forward and backward times; the CLI with
+    backward kernel in bf16; the filter's also on ties and on cotangents
+    that are not contiguous), the forward and backward times; the CLI with
     ablation_self_flow_online.yml plus depth finetuning in both executions;
     one update on the card against the CPU; the times."""
     cases = ft_cases(chk)
-    errs, errs_bf16 = ft_kernel_checks(cases)
+    errs, errs_bf16 = ft_kernel_checks(cases + reg_ft_edge_cases(chk))
     rows, sums = ft_kernel_times(cases)
     # the networks at PyTorch's defaults from here on: cuDNN's TF32
     # convolutions on, float32 matmuls in float32 (the geometry's highp)
@@ -2911,13 +2948,19 @@ def extend_phase(chk, seed, out_dir):
     export_rows, export_sums = kernel_times(
         timing_cases(chk, (*shapes[:3], ()), batches=((2, 1, (6, 5, 4, 3, 2)),)),
         per=f"flow export pair (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
-    # the flow finetuning's Functions at this feed (N = 2, the flow heads)
-    ft_errs, ft_errs_bf16 = ft_kernel_checks(ft_cases(chk, shapes=shapes, depth=False))
+    # the flow finetuning's Functions at this feed (N = 2, the flow heads),
+    # and the filter's forward and backward times per update
+    ft = ft_cases(chk, shapes=shapes, depth=False)
+    ft_errs, ft_errs_bf16 = ft_kernel_checks(ft)
+    ft_rows, ft_sums = ft_kernel_times(
+        [c for c in ft if c["kernel"] == "reg_dist_filter"],
+        per=f"flow update (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
 
     result = {"size": list(EXT_SIZE), "flow_feed": list(fe.flow_feed),
               "depth_feed": list(fe.depth_feed), "kernel_rows": rows, "kernel_sums": sums,
               "flow_export_kernel_rows": export_rows, "flow_export_kernel_sums": export_sums,
-              "ft_kernel_errs": ft_errs, "ft_bwd_kernel_errs_bf16": ft_errs_bf16}
+              "ft_kernel_errs": ft_errs, "ft_bwd_kernel_errs_bf16": ft_errs_bf16,
+              "ft_kernel_rows": ft_rows, "ft_kernel_sums": ft_sums}
     base = os.path.join(ROOT, "build", "chip_smoke", "extend")
     cli = {}
     for execution, frames in (("frame", EXT_FRAMES), ("scan", EXT_SCAN_FRAMES)):
@@ -4201,7 +4244,8 @@ def ext_summary(extend, smi):
         "pose_cnn": extend["pose_cnn"], "kernel_sums": extend["kernel_sums"],
         "flow_export_kernel_sums": extend["flow_export_kernel_sums"],
         "ft_kernel_errs": extend["ft_kernel_errs"],
-        "ft_bwd_kernel_errs_bf16": extend["ft_bwd_kernel_errs_bf16"], "nvidia_smi": smi}
+        "ft_bwd_kernel_errs_bf16": extend["ft_bwd_kernel_errs_bf16"],
+        "ft_kernel_sums": extend["ft_kernel_sums"], "nvidia_smi": smi}
 
 
 def main():
@@ -4302,6 +4346,11 @@ def main():
         "correlation": ("dfvo_torch/csrc/correlation_bwd.cu",
                         "dfvo_tpu/ops/pallas_corr.py:215 (_corr_bwd, the backward of the "
                         "custom_vjp around the Pallas kernels; not itself a Pallas kernel)"),
+        "reg_dist_filter": ("dfvo_torch/csrc/regfilter_bwd.cu",
+                            "dfvo_tpu/ops/regfilter.py:242 (_rf_bwd, the backward of the "
+                            "custom_vjp around the Pallas kernel, with autodiff of the "
+                            "normalisation at dfvo_tpu/models/liteflownet.py:403-404; not "
+                            "itself a Pallas kernel)"),
         "head_conv": ("dfvo_torch/csrc/headconv_bwd.cu",
                       "dfvo_tpu/ops/headconv.py:254 (_hc_bwd, the backward of the "
                       "custom_vjp around the Pallas kernel; not itself a Pallas kernel)"),
@@ -4322,6 +4371,9 @@ def main():
                                    for x in ("frame", "scan")),
             "at_multiseq_update_n8": {k: ms_upd[k] for k in (
                 "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}}
+        if name == "reg_dist_filter":
+            entry["at_370x1226_update"] = {k: extend["ft_kernel_sums"][name][k] for k in (
+                "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by")}
         if name == "correlation":
             entry["launches_hd3"] = sum(hd3["cli"][x]["bwd_launches"][name]
                                         for x in ("frame_finetune", "scan_finetune"))

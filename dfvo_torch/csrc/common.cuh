@@ -85,6 +85,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes)
                : "memory");
 }
+// 4- or 8-byte asynchronous copy global -> shared; with valid == false the
+// destination is zero-filled (src must still be a mapped address).
+template <int N>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem, bool valid) {
+  static_assert(N == 4 || N == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? N : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+               "n"(N), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -86,18 +86,6 @@ struct RfTile {
   static constexpr int SMEM = 2 * STAGE + WEIGHTS;
 };
 
-// 4- or 8-byte asynchronous copy global -> shared; with valid == false the
-// destination is zero-filled (src must still be a mapped address).
-template <int N>
-__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem, bool valid) {
-  static_assert(N == 4 || N == 8, "cp.async.ca copies 4, 8 or 16 bytes");
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? N : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
-               "n"(N), "r"(bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ float load_param(const void* p, int i, int dtype) {
   return dtype == kFloat32 ? static_cast<const float*>(p)[i]
                            : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);

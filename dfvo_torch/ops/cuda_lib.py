@@ -25,8 +25,8 @@ from .kernel_grad import records_grad
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "dfvo_torch_kernels"
-SOURCES = ("correlation.cu", "correlation_bwd.cu", "regfilter.cu", "headconv.cu",
-           "headconv_bwd.cu")
+SOURCES = ("correlation.cu", "correlation_bwd.cu", "regfilter.cu", "regfilter_bwd.cu",
+           "headconv.cu", "headconv_bwd.cu")
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -47,6 +47,12 @@ _SIGNATURES = {
     "dfvo_correlation_tc": (_P, _L, _L, _L, _P, _L, _L, _L, _P) + (_I,) * 5 + (_P,),
     # raw, flow, wx, bx, wy, by, wdtype, out, n, h, w, k, dtype, stream
     "dfvo_reg_dist_filter": (_P,) * 6 + (_I, _P) + (_I,) * 5 + (_P,),
+    # n, h, w -> rows of the parameter-gradient workspace
+    "dfvo_reg_dist_filter_bwd_parts": (_I,) * 3,
+    # raw, flow, wx, bx, wy, by, wdtype, g, sgn, sgh, sgw, sgc, draw, dflow,
+    # coef, part, dwx, dbx, dwy, dby, n, h, w, k, dtype, stream
+    "dfvo_reg_dist_filter_bwd": (_P,) * 6 + (_I, _P) + (_L,) * 4 + (_P,) * 8 + (_I,) * 5
+    + (_P,),
     # x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, cout, pad,
     # dtype, stream
     "dfvo_headconv": (_P, _P, _P, _P) + (_I,) * 10 + (_P,),
@@ -175,8 +181,7 @@ def forbid_grad(name, *tensors):
         raise RuntimeError(
             f"{name}: the raw CUDA kernel wrapper has no backward pass; call it under "
             "torch.no_grad(), or call the op's dispatcher, whose autograd Function "
-            "runs the backward kernel (correlation, head_conv) or the plain version's "
-            "VJP (reg_dist_filter)"
+            "runs the backward kernel"
         )
 
 

@@ -90,6 +90,7 @@ def test_build_command_targets_hopper_from_the_checkout(monkeypatch):
     assert all({"-c", "-O3"} <= set(cmd) for cmd in compiles)
     sources = [Path(c) for cmd in compiles for c in cmd if c.endswith(".cu")]
     assert {s.name for s in sources} == {"correlation.cu", "correlation_bwd.cu", "regfilter.cu",
+                                         "regfilter_bwd.cu",
                                          "headconv.cu", "headconv_bwd.cu"}
     assert all(s.is_file() and REPO in s.parents for s in sources)
     objs = [cmd[cmd.index("-o") + 1] for cmd in compiles]
