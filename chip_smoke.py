@@ -11,10 +11,12 @@ seconds, none caught:
 2. build: the CUDA kernels of dfvo_torch/csrc, compiled with nvcc for
    sm_90a; registers and spills of each kernel from `ptxas -v`.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the main path gives it, in float32 (the cuda_core variants)
-   and bfloat16 (the tensor_core variants of the head conv and the cost
-   volume, the fused normalisation and filter from the raw confidence
-   logits), and the off-path cases.
+   every shape the main path gives it, in float32 (the cost volume's
+   cuda_core and the head conv's reg_tile variants) and bfloat16 (the
+   tensor_core variants of the head conv and the cost volume, the fused
+   normalisation and filter from the raw confidence logits), and the
+   off-path cases (the head conv's reg_tile in bf16 at Cin = 3, an
+   unaligned base, Cout 3 and 4, k = 1).
 4. slice: DeepFrontend from options/examples/default_configuration.yml
    (192x640, bfloat16, seeded random weights) runs `infer` on 8 consecutive
    pairs of synthetic frames, `infer_chunk` on a 33-frame chunk and
@@ -79,8 +81,10 @@ seconds, none caught:
    and the filter at its five levels on the [2, ...] pair batch, the ten
    flow heads and the four disparity heads) against autograd of the plain
    version on the same inputs and cotangent, launching the float32
-   variants (cuda_core; async_tile for the filter) and, in the backward,
-   each one's backward kernel once; the filter's also at level 2 with ties
+   variants (cuda_core, reg_tile for the head conv; async_tile for the
+   filter) and, in the backward, each one's backward kernel once (the head
+   conv's weight and bias gradients equal bit for bit over two launches,
+   in float32 and bf16); the filter's also at level 2 with ties
    at the minimal |raw| and with cotangents that are a permuted view and an
    expanded (stride-0) one; the backward kernels also in bf16 at those
    shapes against their plain versions; each one's forward and backward
@@ -106,8 +110,8 @@ seconds, none caught:
    times per infer_chunk call beside the bounds, and LiteFlowNet's per
    pair at N = 2 (the flow export's feed); the flow finetuning's Functions
    at N = 2 with the backward kernels (float32, and the backward kernels
-   in bf16) against autograd of the plain version, and the filter's
-   forward and backward times per update; the CLI with flow
+   in bf16) against autograd of the plain version, and the filter's and
+   the head conv's forward and backward times per update; the CLI with flow
    finetuning (scales 1-5), rigid-flow keypoints and iterative scale in
    frame execution over EXT_FRAMES frames and in scan execution over
    EXT_SCAN_FRAMES frames (one full chunk of 32 and a padded one): finite
@@ -192,7 +196,8 @@ frames/s, host reads per frame, the frame loader), a JSON line of the
 tracking numbers, a JSON line of the scan execution, a JSON line of
 finetuning, a JSON line of the extend phase, a JSON line of the hd3 phase,
 a JSON line of the multiseq phase, a JSON line of the datasets phase, a JSON line of the kernels (HD3's D = 4 cost volume as an entry of its
-own, correlation_d4, and the backward kernels as correlation_backward,
+own, correlation_d4, the head conv's float32 forward of the finetuning
+update as head_conv_f32, and the backward kernels as correlation_backward,
 reg_dist_filter_backward and head_conv_backward, timed per finetuning
 update; launches from the slice phase, from the CLI run as launches_cli, from the
 scan execution as launches_scan, from the finetuning updates of both CLI
@@ -286,11 +291,11 @@ SCAN_T_REL = 1e-3
 ABLATION_CFG = os.path.join(ROOT, "options", "examples", "ablation_self_flow_online.yml")
 # launches per update: LiteFlowNet in "two" mode on the [2, ...] forward and
 # backward pair (5 levels, 10 flow-delta heads) and Monodepth2's 4 disparity
-# heads, all float32 (cuda_core; async_tile for the filter); as many backward
-# passes of each Function
+# heads, all float32 (cuda_core, reg_tile for the head conv; async_tile for
+# the filter); as many backward passes of each Function
 FT_PER_UPDATE = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 14}
 FT_VARIANT = {"correlation": "cuda_core", "reg_dist_filter": "async_tile",
-              "head_conv": "cuda_core"}
+              "head_conv": "reg_tile"}
 FT_LR = 1e-5
 FT_CHUNK_PAIRS = 8
 # the finetuning CLI runs: 7 updates in frame execution; a full chunk of 32
@@ -506,9 +511,10 @@ def kernels_phase(chk):
     from dfvo_torch.ops.regfilter import reg_dist_filter_cuda
 
     check_main_path_shapes(chk, (CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS))
-    # off the main path (the cuda_core variants in bf16 too): channel counts
-    # that do not fill 16-byte vectors and a base address that is not
-    # 16-byte aligned take the kernels' scalar loops
+    # off the main path (the cuda_core and reg_tile variants in bf16 too):
+    # channel counts that do not fill 16-byte vectors and a base address that
+    # is not 16-byte aligned take the kernels' scalar loads; the head conv at
+    # Cout 3 and 4 and k = 1 (reg_tile)
     f1, f2 = chk.randn((2, 12, 40, 33)), chk.randn((2, 12, 40, 33))
     chk.compare("correlation", "c=33 [2, 12, 40, 33]",
                 lambda a, b: correlation_cuda(a, b, 3, 1),
@@ -522,6 +528,10 @@ def kernels_phase(chk):
                head_conv_plain, main_path=False)
     check_head(chk, "unaligned", 2, (24, 80, 32), 2, 5, False, head_conv_cuda,
                head_conv_plain, prep=misaligned, main_path=False)
+    check_head(chk, "cout=3 k7 pre", 2, (30, 86, 20), 3, 7, True, head_conv_cuda,
+               head_conv_plain, main_path=False)
+    check_head(chk, "cout=4 k1", 2, (24, 80, 12), 4, 1, False, head_conv_cuda,
+               head_conv_plain, main_path=False)
     # the regularization filter off the path: ragged tiles on both edges, a
     # raw and flow one element past an aligned address (unaligned spans and
     # element-wise flow staging), and logits of +-300 where every tap but the
@@ -2242,6 +2252,8 @@ def ft_bwd_bf16(case, cot):
         fail(f"finetune {case['kernel']} {case['label']}: the bf16 backward kernel did not "
              "launch once")
     ref = case["bwd_plain"](g.float(), *[t.float() for t in ins], *case["rest"], needs=needs)
+    if case["kernel"] == "head_conv":
+        same_bits(case, case["bwd_kfn"](g, *ins, *case["rest"], needs=needs)[1:], got[1:], "bf16")
     worst = 0.0
     for i, (a, r) in enumerate(zip(got, ref)):
         if a.dtype != torch.bfloat16:
@@ -2255,6 +2267,14 @@ def ft_bwd_bf16(case, cot):
                  f"2e-2 |ref| by {excess:.3e}")
         worst = max(worst, err.max().item())
     return worst
+
+
+def same_bits(case, again, first, what):
+    """The head conv's weight and bias gradients of two backward launches
+    (their partials are summed in a fixed order): equal bit for bit."""
+    if not all(torch.equal(a, b) for a, b in zip(again, first)):
+        fail(f"finetune head_conv {case['label']}: {what} weight or bias gradient differs "
+             "between two launches")
 
 
 def ft_kernel_checks(cases):
@@ -2301,13 +2321,19 @@ def ft_kernel_checks(cases):
                 fail(f"finetune {kernel} {label}: {name} max abs err {err:.3e} > "
                      f"{1e-4 * scale:.3e}")
             errs.append(err)
+        if kernel == "head_conv":
+            needs = (True,) * len(ins)
+            first = case["bwd_kfn"](cot, *ins, *rest, needs=needs)[1:]
+            same_bits(case, case["bwd_kfn"](cot, *ins, *rest, needs=needs)[1:], first, "f32")
         worst[kernel][0] = max(worst[kernel][0], errs[0])
         worst[kernel][1] = max(worst[kernel][1], max(errs[1:]))
         e16 = ft_bwd_bf16(case, cot)
         worst_bf16[kernel] = max(worst_bf16[kernel], e16)
         print(f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
               f"input grads err {max(errs[1:]):.2e} (backward kernel); bf16 backward kernel "
-              f"ok, max abs err {e16:.2e}", flush=True)
+              f"ok, max abs err {e16:.2e}"
+              + ("; dW, db equal bit for bit over two launches" if kernel == "head_conv" else ""),
+              flush=True)
     return worst, worst_bf16
 
 
@@ -2543,9 +2569,9 @@ def ft_check_cli(r, execution, frames):
     check_bwd_launches(f"finetune {execution}", r, want_ft)
     for k in ("correlation", "head_conv"):
         by = r["variants"][k]
-        if by["tensor_core"] != infer[k] or by["cuda_core"] != want_ft[k]:
+        if by["tensor_core"] != infer[k] or by[FT_VARIANT[k]] != want_ft[k]:
             fail(f"finetune {execution}: {k} by variant {by}, expected {infer[k]} "
-                 f"tensor_core (inference) and {want_ft[k]} cuda_core (updates)")
+                 f"tensor_core (inference) and {want_ft[k]} {FT_VARIANT[k]} (updates)")
     if execution == "frame":
         reads = RUN_HOST_READS[vo.drawer is not None]
         syncs, where = r["rec"].syncs, r["rec"].where
@@ -2835,9 +2861,9 @@ def ext_check_cli(r, execution, frames, result):
     check_bwd_launches(f"extend {execution}", r, want_ft)
     for k in ("correlation", "head_conv"):
         by = r["variants"][k]
-        if by["tensor_core"] != infer[k] or by["cuda_core"] != want_ft[k]:
+        if by["tensor_core"] != infer[k] or by[FT_VARIANT[k]] != want_ft[k]:
             fail(f"extend {execution}: {k} by variant {by}, expected {infer[k]} "
-                 f"tensor_core and {want_ft[k]} cuda_core")
+                 f"tensor_core and {want_ft[k]} {FT_VARIANT[k]}")
     if execution == "frame":
         reads = RUN_HOST_READS[vo.drawer is not None]
         syncs, where = r["rec"].syncs, r["rec"].where
@@ -2949,11 +2975,12 @@ def extend_phase(chk, seed, out_dir):
         timing_cases(chk, (*shapes[:3], ()), batches=((2, 1, (6, 5, 4, 3, 2)),)),
         per=f"flow export pair (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
     # the flow finetuning's Functions at this feed (N = 2, the flow heads),
-    # and the filter's forward and backward times per update
+    # and the filter's and the head conv's forward and backward times per
+    # update
     ft = ft_cases(chk, shapes=shapes, depth=False)
     ft_errs, ft_errs_bf16 = ft_kernel_checks(ft)
     ft_rows, ft_sums = ft_kernel_times(
-        [c for c in ft if c["kernel"] == "reg_dist_filter"],
+        [c for c in ft if c["kernel"] in ("reg_dist_filter", "head_conv")],
         per=f"flow update (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
 
     result = {"size": list(EXT_SIZE), "flow_feed": list(fe.flow_feed),
@@ -4371,15 +4398,36 @@ def main():
                                    for x in ("frame", "scan")),
             "at_multiseq_update_n8": {k: ms_upd[k] for k in (
                 "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}}
-        if name == "reg_dist_filter":
+        if name in ("reg_dist_filter", "head_conv"):
             entry["at_370x1226_update"] = {k: extend["ft_kernel_sums"][name][k] for k in (
-                "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by")}
+                "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}
         if name == "correlation":
             entry["launches_hd3"] = sum(hd3["cli"][x]["bwd_launches"][name]
                                         for x in ("frame_finetune", "scan_finetune"))
             entry["at_hd3_d4_update"] = {k: hd3["ft_kernel_sums"][k] for k in (
                 "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by")}
         kernels.append(entry)
+    # the head conv's float32 forward (reg_tile), every head of a finetuning
+    # update: times per update at 192x640 (N = 2 / 1), launches over both
+    # finetuning CLI runs
+    ft, ext_ft = finetune["kernel_sums"]["head_conv"], extend["ft_kernel_sums"]["head_conv"]
+    ms_ft = multiseq["kernels"]["update_sums"]["head_conv"]
+    kernels.insert(3, {
+        "name": "head_conv_f32", "route": "cuda", "source": "dfvo_torch/csrc/headconv.cu",
+        "replaces": "dfvo_tpu/ops/headconv.py:65 (in float32, the finetuning update)",
+        "variant": FT_VARIANT["head_conv"],
+        "launches": sum(finetune["cli"][x]["launches_finetune"]["head_conv"]
+                        for x in ("frame", "scan")),
+        "launches_per_update": ft["launches_per_update"],
+        "max_abs_err": finetune["kernel_errs"]["head_conv"][0],
+        "ms": ft["fwd_ms"], "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
+        "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"],
+        "launches_extend": sum(extend["cli"][x]["launches_finetune"]["head_conv"]
+                               for x in ("frame", "scan")),
+        "at_370x1226_update": {k: ext_ft[k] for k in (
+            "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_bound_by", "library_fwd_ms")},
+        "at_multiseq_update_n8": {k: ms_ft[k] for k in (
+            "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_bound_by", "library_fwd_ms")}})
     report = {
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "infer_ms_per_frame": infer_ms, "infer_chunk_ms_per_frame": chunk_ms,

@@ -38,12 +38,36 @@
 // pixel pitch is Cin + 8 elements, which keeps the eight 16-byte rows of
 // every ldmatrix on distinct banks.
 //
-// cuda_core (dfvo_headconv): float32, Cin = 3 and other odd shapes, and
-// unaligned bases. One thread per output pixel computing all Cout outputs
-// in registers on the CUDA cores in f32; f32 weights staged once per block
-// in shared memory (broadcast reads); each tap's Cin channels read with
-// 16-byte vector loads where aligned, else a scalar loop. Float32 stays in
-// true f32 (TF32 tensor cores would not hold 1e-4).
+// reg_tile (dfvo_headconv): float32 (the finetuning path: LiteFlowNet's
+// main_3 heads, Cin 32, Cout 2, k 7/5/5/3/3 'same'; Monodepth2's disparity
+// heads, Cin 16..128, Cout 1, k 3, pre-padded), and bf16 outside the
+// tensor_core set (Cin = 3 and other channel counts, unaligned bases, Cout
+// 3-4, k = 1). f32 multiply-adds on the CUDA cores (not TF32: float32 is held
+// to 1e-4). What bounds it on the H100: the operations. Level 2 of an update
+// (96 x 320, N = 2, k = 7, Cin 32, Cout 2) is 0.385 GFLOP a call, 5.7 us at
+// the 67 TFLOP/s float32 rate, against 5 MB of input. So the design keeps
+// the FMA pipe fed from registers:
+//   * a block of 4 warps owns an 8 x 32 output tile and stages its input
+//     with the k-1 halo in shared memory, 16 channels at a time (32 for
+//     k <= 3), by cp.async with zero-fill outside the image (that is the
+//     'same' padding), double-buffered: the next chunk's copy overlaps this
+//     chunk's FMAs;
+//   * warp s takes channel quads s (and s + 4) of every chunk (the Cin
+//     reduction split over the 4 warps, so that a small map still fills the
+//     card), and lane l a strip of 8 output pixels of tile row l % 8,
+//     columns 8 (l / 8) ..;
+//   * per (dy, channel quad) a thread reads the 8 + k - 1 staged pixels of
+//     its strip's row once into registers (16-byte loads of 4 channels: the
+//     8 rows of a quarter-warp sit on distinct banks, the staged row spanning
+//     an odd number of 16-byte units) and runs 8 x k x 4 x Cout FMAs from
+//     them, the weights read as broadcasts of 4 x Cout values per (dy, dx);
+//   * the 4 warps' partial outputs are summed in shared memory in warp order
+//     (a fixed order), the bias added and the tile stored densely.
+// The f32 weights [k, k, Cin, Cout] (contiguous, as the wrapper passes
+// them) are staged once per block by cp.async beside the first chunk, with
+// Cin padded to a multiple of 4 by zeros where it is not one. Inputs whose
+// pixels are not 16-byte aligned are staged element by element through the
+// same buffers.
 
 #include <algorithm>
 
@@ -51,105 +75,279 @@
 
 namespace dfvo {
 
-constexpr int kHeadBlock = 128;
 constexpr int kHeadMaxWeightBytes = 48 * 1024;
 
-template <typename T, int COUT, bool VEC>
-__global__ void __launch_bounds__(kHeadBlock)
-    headconv_kernel(const T* __restrict__ x, const float* __restrict__ wts,
-                    const float* __restrict__ bias, T* __restrict__ out, int n,
-                    int in_h, int in_w, int cin, int out_h, int out_w, int k,
-                    int pad) {
-  extern __shared__ float head_smem[];
-  const int nw = k * k * cin * COUT;
-  for (int i = threadIdx.x; i < nw; i += kHeadBlock) head_smem[i] = wts[i];
-  __syncthreads();
+// ---- reg_tile variant ----
 
-  const long long pix = static_cast<long long>(blockIdx.x) * kHeadBlock + threadIdx.x;
-  const long long total = static_cast<long long>(n) * out_h * out_w;
-  if (pix >= total) return;
-  const int ox = static_cast<int>(pix % out_w);
-  const int oy = static_cast<int>((pix / out_w) % out_h);
-  const long long b = pix / (static_cast<long long>(out_w) * out_h);
+constexpr int kRtRows = 8;    // tile rows: the 8 lanes of a quarter-warp
+constexpr int kRtSeg = 8;     // output pixels of a row per thread
+constexpr int kRtStrips = 4;  // strips per tile row: the 4 quarter-warps
+constexpr int kRtCols = kRtSeg * kRtStrips;
+constexpr int kRtSplit = 4;  // warps of a block, each 4 channels of every chunk
+constexpr int kRtThreads = 32 * kRtSplit;
+// channel quads a warp takes per chunk: 2 for k <= 3 (the deep disparity
+// heads take half the steps), else 1; staged channels per chunk
+__host__ __device__ constexpr int rt_qpw(int k) { return k <= 3 ? 2 : 1; }
+__host__ __device__ constexpr int rt_chan(int k) { return 4 * kRtSplit * rt_qpw(k); }
 
-  float acc[COUT];
-#pragma unroll
-  for (int co = 0; co < COUT; ++co) acc[co] = 0.f;
+constexpr int kRtBatch = 8;  // loads a thread issues before their stores
 
-  for (int dy = 0; dy < k; ++dy) {
-    const int iy = oy + dy - pad;
-    if (iy < 0 || iy >= in_h) continue;
-    for (int dx = 0; dx < k; ++dx) {
-      const int ix = ox + dx - pad;
-      if (ix < 0 || ix >= in_w) continue;
-      const T* xp = x + ((b * in_h + iy) * in_w + ix) * cin;
-      const float* wp = head_smem + (dy * k + dx) * cin * COUT;
-      if constexpr (VEC) {
-        constexpr int E = kVec<T>;
-        for (int ci = 0; ci < cin; ci += E) {
-          float v[E];
-          load16(xp + ci, v);
+// Weight rows per tap: Cin padded to a multiple of 4 (a channel quad).
+__host__ __device__ inline int rt_cin4(int cin) { return (cin + 3) & ~3; }
+
+// Byte layout of the dynamic shared memory: two staging buffers (reused for
+// the warps' partial outputs at the end), then the f32 weights.
+struct RtSmem {
+  int row_pitch;  // bytes of a staged row: an odd number of 16-byte units
+  int buf;        // bytes of one staging buffer
+  int weights;    // offset of the weights
+  int total;
+};
+
+__host__ __device__ inline RtSmem rt_smem(int k, int cin, int cout, int tsize) {
+  RtSmem s;
+  s.row_pitch = (kRtCols + k - 1) * rt_chan(k) * tsize + 16;
+  s.buf = (kRtRows + k - 1) * s.row_pitch;
+  const int red = static_cast<int>(sizeof(float)) * kRtSplit * kRtRows * kRtCols * cout;
+  s.weights = 2 * s.buf > red ? 2 * s.buf : red;
+  s.total = s.weights + static_cast<int>(sizeof(float)) * k * k * rt_cin4(cin) * cout;
+  return s;
+}
+
+// Four consecutive staged channels, widened to f32.
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+struct RtArgs {
+  const void* x;  // dense [n, in_h, in_w, cin]
+  const float* w;  // dense f32 [k, k, cin, cout]
+  const float* bias;  // f32 [cout] or null
+  void* out;  // dense [n, out_h, out_w, cout]
+  int n, in_h, in_w, cin, out_h, out_w, cout, pad;
+  int vec;   // pixels 16-byte aligned: cp.async staging
+  int wvec;  // Cin a multiple of 4 and w 16-byte aligned: cp.async of the weights
+};
+
+template <typename T, int K, int COUT>
+__global__ void __launch_bounds__(kRtThreads) headconv_rt_kernel(RtArgs a) {
+  constexpr int SR = kRtRows + K - 1;  // staged rows
+  constexpr int SC = kRtCols + K - 1;  // staged columns
+  constexpr int WIN = kRtSeg + K - 1;  // a strip's window of staged pixels
+  constexpr int QPW = rt_qpw(K);
+  constexpr int CH = rt_chan(K);
+  extern __shared__ __align__(16) unsigned char rt_smem_raw[];
+  const int cin = a.cin;
+  const RtSmem lay = rt_smem(K, cin, COUT, sizeof(T));
+  const int cin4 = rt_cin4(cin);
+  float* ws = reinterpret_cast<float*>(rt_smem_raw + lay.weights);
+  unsigned char* bufs[2] = {rt_smem_raw, rt_smem_raw + lay.buf};
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int row = tid & 7;         // the strip's tile row
+  const int strip = (tid >> 3) & 3;
+  const int tiles_x = (a.out_w + kRtCols - 1) / kRtCols;
+  const int tiles_y = (a.out_h + kRtRows - 1) / kRtRows;
+  const long long tile = blockIdx.x;
+  const int x0 = static_cast<int>(tile % tiles_x) * kRtCols;
+  const int y0 = static_cast<int>((tile / tiles_x) % tiles_y) * kRtRows;
+  const int b = static_cast<int>(tile / (static_cast<long long>(tiles_x) * tiles_y));
+  const T* xb = static_cast<const T*>(a.x) + static_cast<long long>(b) * a.in_h * a.in_w * cin;
+  const int iy0 = y0 - a.pad;
+  const int ix0 = x0 - a.pad;
+
+  // chunk j (channels CH j ..) of the tile's input with its halo: staged
+  // pixel (r, col) <-> input pixel (iy0 + r, ix0 + col), zero outside the
+  // image and past cin
+  auto stage = [&](int j, unsigned char* buf) {
+    const int c0 = j * CH;
+    if (a.vec) {
+      constexpr int E = kVec<T>;
+      constexpr int PIECES = CH / E;
+      for (int i = tid; i < SR * SC * PIECES; i += kRtThreads) {
+        const int pix = i / PIECES;
+        const int pc = i - pix * PIECES;
+        const int r = pix / SC;
+        const int col = pix - r * SC;
+        const int yy = iy0 + r;
+        const int xx = ix0 + col;
+        const int c = c0 + pc * E;
+        const bool ok = yy >= 0 && yy < a.in_h && xx >= 0 && xx < a.in_w && c < cin;
+        cp_async16(buf + r * lay.row_pitch + (col * CH + pc * E) * sizeof(T),
+                   ok ? xb + (static_cast<long long>(yy) * a.in_w + xx) * cin + c : xb, ok);
+      }
+    } else {
+      for (int i = tid; i < SR * SC * CH; i += kRtThreads) {
+        const int pix = i / CH;
+        const int cc = i - pix * CH;
+        const int r = pix / SC;
+        const int col = pix - r * SC;
+        const int yy = iy0 + r;
+        const int xx = ix0 + col;
+        const int c = c0 + cc;
+        const bool ok = yy >= 0 && yy < a.in_h && xx >= 0 && xx < a.in_w && c < cin;
+        *reinterpret_cast<T*>(buf + r * lay.row_pitch + (col * CH + cc) * sizeof(T)) =
+            ok ? xb[(static_cast<long long>(yy) * a.in_w + xx) * cin + c] : from_f32<T>(0.f);
+      }
+    }
+  };
+
+  const int nchunks = (cin + CH - 1) / CH;
+  // weights as ws[(tap * cin4 + c) * COUT + co], zero for c >= cin: the
+  // 4 x COUT values of a (tap, quad) are COUT float4s
+  const int nws = K * K * cin4 * COUT;
+  if (a.wvec) {
+    for (int i = tid; i < nws / 4; i += kRtThreads) cp_async16(ws + 4 * i, a.w + 4 * i, true);
+  } else {
+    for (int i0 = tid; i0 < nws; i0 += kRtBatch * kRtThreads) {
+      float v[kRtBatch];
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
+      for (int u = 0; u < kRtBatch; ++u) {
+        const int i = i0 + u * kRtThreads;
+        const int co = i % COUT;
+        const int c = (i / COUT) % cin4;
+        const int tap = i / (COUT * cin4);
+        v[u] = i < nws && c < cin ? a.w[(tap * cin + c) * COUT + co] : 0.f;
+      }
 #pragma unroll
-            for (int co = 0; co < COUT; ++co)
-              acc[co] += v[e] * wp[(ci + e) * COUT + co];
+      for (int u = 0; u < kRtBatch; ++u)
+        if (i0 + u * kRtThreads < nws) ws[i0 + u * kRtThreads] = v[u];
+    }
+  }
+  stage(0, bufs[0]);
+  cp_async_commit();  // with the weights
+
+  float acc[kRtSeg][COUT];
+#pragma unroll
+  for (int p = 0; p < kRtSeg; ++p)
+#pragma unroll
+    for (int co = 0; co < COUT; ++co) acc[p][co] = 0.f;
+  for (int j = 0; j < nchunks; ++j) {
+    if (j + 1 < nchunks) {
+      stage(j + 1, bufs[(j + 1) & 1]);  // its buffer's last reads ended at j - 1's barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int qq = 0; qq < QPW; ++qq) {
+      const int ql = qq * kRtSplit + warp;  // the quad within the chunk
+      const int quad = j * kRtSplit * QPW + ql;
+      if (quad * 4 >= cin) break;
+      const unsigned char* base =
+          bufs[j & 1] + row * lay.row_pitch + (strip * kRtSeg * CH + ql * 4) * sizeof(T);
+      const float* wq = ws + quad * 4 * COUT;
+#pragma unroll 1
+      for (int dy = 0; dy < K; ++dy) {
+        const T* src = reinterpret_cast<const T*>(base + dy * lay.row_pitch);
+        float win[WIN][4];
+#pragma unroll
+        for (int i = 0; i < WIN; ++i) lds4(src + i * CH, win[i]);
+        const float* wd = wq + dy * K * cin4 * COUT;
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          float wv[4 * COUT];  // wv[ch * COUT + co]
+#pragma unroll
+          for (int e = 0; e < COUT; ++e) {
+            float q[4];
+            lds4(wd + dx * cin4 * COUT + 4 * e, q);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) wv[4 * e + m] = q[m];
           }
-        }
-      } else {
-        for (int ci = 0; ci < cin; ++ci) {
-          const float v = to_f32(xp[ci]);
 #pragma unroll
-          for (int co = 0; co < COUT; ++co) acc[co] += v * wp[ci * COUT + co];
+          for (int p = 0; p < kRtSeg; ++p)
+#pragma unroll
+            for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+              for (int co = 0; co < COUT; ++co)
+                acc[p][co] = fmaf(win[p + dx][ch], wv[ch * COUT + co], acc[p][co]);
         }
       }
     }
+    __syncthreads();  // this chunk's buffer is free
   }
 
-  T* o = out + pix * COUT;
+  // the warps' partial outputs, red[warp][pixel][co], over the staging
+  // buffers; then each output is the sum over the warps in order, plus bias
+  float* red = reinterpret_cast<float*>(rt_smem_raw);
+  const int px0 = row * kRtCols + strip * kRtSeg;
 #pragma unroll
-  for (int co = 0; co < COUT; ++co)
-    o[co] = from_f32<T>(bias != nullptr ? acc[co] + bias[co] : acc[co]);
+  for (int p = 0; p < kRtSeg; ++p)
+#pragma unroll
+    for (int co = 0; co < COUT; ++co)
+      red[(warp * kRtRows * kRtCols + px0 + p) * COUT + co] = acc[p][co];
+  __syncthreads();
+  T* out = static_cast<T*>(a.out);
+  for (int i = tid; i < kRtRows * kRtCols; i += kRtThreads) {
+    const int y = y0 + i / kRtCols;
+    const int xo = x0 + i % kRtCols;
+    if (y >= a.out_h || xo >= a.out_w) continue;
+    T* o = out + ((static_cast<long long>(b) * a.out_h + y) * a.out_w + xo) * COUT;
+#pragma unroll
+    for (int co = 0; co < COUT; ++co) {
+      float v = 0.f;
+#pragma unroll
+      for (int s = 0; s < kRtSplit; ++s) v += red[(s * kRtRows * kRtCols + i) * COUT + co];
+      o[co] = from_f32<T>(a.bias != nullptr ? v + a.bias[co] : v);
+    }
+  }
 }
 
-template <typename T, int COUT>
-static void launch_headconv_cout(const void* x, const void* wts,
-                                 const void* bias, void* out, int n, int in_h,
-                                 int in_w, int cin, int out_h, int out_w,
-                                 int k, int pad, cudaStream_t stream) {
-  const long long total = static_cast<long long>(n) * out_h * out_w;
-  const size_t smem = sizeof(float) * k * k * cin * COUT;
-  const unsigned int grid = ceil_div(total, kHeadBlock);
-  const T* xp = static_cast<const T*>(x);
-  const float* wp = static_cast<const float*>(wts);
-  const float* bp = static_cast<const float*>(bias);
-  T* o = static_cast<T*>(out);
-  if (vec_ok<T>(x, cin))
-    headconv_kernel<T, COUT, true><<<grid, kHeadBlock, smem, stream>>>(
-        xp, wp, bp, o, n, in_h, in_w, cin, out_h, out_w, k, pad);
-  else
-    headconv_kernel<T, COUT, false><<<grid, kHeadBlock, smem, stream>>>(
-        xp, wp, bp, o, n, in_h, in_w, cin, out_h, out_w, k, pad);
+template <typename T, int K, int COUT>
+static int launch_headconv_rt_kc(const RtArgs& a, cudaStream_t stream) {
+  const RtSmem lay = rt_smem(K, a.cin, COUT, sizeof(T));
+  auto kernel = headconv_rt_kernel<T, K, COUT>;
+  cudaError_t err = allow_smem(kernel, lay.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(ceil_div(a.out_w, kRtCols)) *
+                           ceil_div(a.out_h, kRtRows) * a.n;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), kRtThreads, lay.total, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int K>
+static int launch_headconv_rt_k(const RtArgs& a, cudaStream_t s) {
+  switch (a.cout) {
+    case 1:
+      return launch_headconv_rt_kc<T, K, 1>(a, s);
+    case 2:
+      return launch_headconv_rt_kc<T, K, 2>(a, s);
+    case 3:
+      return launch_headconv_rt_kc<T, K, 3>(a, s);
+    default:
+      return launch_headconv_rt_kc<T, K, 4>(a, s);
+  }
 }
 
 template <typename T>
-static void launch_headconv(const void* x, const void* wts, const void* bias,
-                            void* out, int n, int in_h, int in_w, int cin,
-                            int out_h, int out_w, int k, int cout, int pad,
-                            cudaStream_t s) {
-  switch (cout) {
+static int launch_headconv_rt(const RtArgs& a, int k, cudaStream_t s) {
+  switch (k) {
     case 1:
-      launch_headconv_cout<T, 1>(x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, pad, s);
-      break;
-    case 2:
-      launch_headconv_cout<T, 2>(x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, pad, s);
-      break;
+      return launch_headconv_rt_k<T, 1>(a, s);
     case 3:
-      launch_headconv_cout<T, 3>(x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, pad, s);
-      break;
+      return launch_headconv_rt_k<T, 3>(a, s);
+    case 5:
+      return launch_headconv_rt_k<T, 5>(a, s);
     default:
-      launch_headconv_cout<T, 4>(x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, pad, s);
-      break;
+      return launch_headconv_rt_k<T, 7>(a, s);
   }
 }
 
@@ -436,9 +634,10 @@ static int launch_headconv_tc(const void* x, const long long* sx,
 
 }  // namespace dfvo
 
-// cuda_core variant. x: [n, in_h, in_w, cin]; wts: f32 [k, k, cin, cout];
-// bias: f32 [cout] or null; out: [n, out_h, out_w, cout]. pad = (k-1)/2 for 'same' zero padding
-// (out = in size), 0 for a pre-padded input (out = in - (k-1)).
+// reg_tile variant. x: dense [n, in_h, in_w, cin]; wts: dense f32 [k, k,
+// cin, cout]; bias: f32 [cout] or null; out: dense [n, out_h, out_w, cout].
+// pad = (k-1)/2 for 'same' zero padding (out = in size), 0 for a pre-padded
+// input (out = in - (k-1)).
 extern "C" int dfvo_headconv(const void* x, const void* wts, const void* bias,
                              void* out, int n, int in_h, int in_w, int cin,
                              int out_h, int out_w, int k, int cout, int pad,
@@ -446,16 +645,23 @@ extern "C" int dfvo_headconv(const void* x, const void* wts, const void* bias,
   using namespace dfvo;
   if (n <= 0 || out_h <= 0 || out_w <= 0 || cin <= 0 || k < 1 || k > 7 ||
       k % 2 == 0 || cout < 1 || cout > 4 ||
-      sizeof(float) * k * k * cin * cout > kHeadMaxWeightBytes)
+      sizeof(float) * k * k * cin * cout > kHeadMaxWeightBytes ||
+      (pad != 0 && 2 * pad != k - 1) || out_h != in_h + 2 * pad - (k - 1) ||
+      out_w != in_w + 2 * pad - (k - 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    launch_headconv<float>(x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, cout, pad, s);
-  else if (dtype == kBFloat16)
-    launch_headconv<__nv_bfloat16>(x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, cout, pad, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  RtArgs a{x, static_cast<const float*>(wts), static_cast<const float*>(bias), out,
+           n, in_h, in_w, cin, out_h, out_w, cout, pad, 0,
+           cin % 4 == 0 && reinterpret_cast<uintptr_t>(wts) % 16 == 0};
+  if (dtype == kFloat32) {
+    a.vec = vec_ok<float>(x, cin);
+    return launch_headconv_rt<float>(a, k, s);
+  }
+  if (dtype == kBFloat16) {
+    a.vec = vec_ok<__nv_bfloat16>(x, cin);
+    return launch_headconv_rt<__nv_bfloat16>(a, k, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // tensor_core variant. x: bf16 [n, in_h, in_w, cin] with element strides

@@ -10,14 +10,16 @@ Monodepth2's disparity heads (3x3, Cout = 1, reflect-padded by the caller).
   chosen by :func:`head_conv_variant` from dtype and shape:
   ``tensor_core`` (bf16, Cin in {16, 32, 64, 128}, Cout <= 2,
   k in {3, 5, 7}, 16-byte aligned pixels: all 14 heads of the main path)
-  and ``cuda_core`` (float32, Cin = 3, unaligned bases, Cout 3-4, k = 1).
+  and ``reg_tile`` (register-tiled on the CUDA cores: float32, which is
+  every head of a finetuning update, and bf16 outside the tensor-core set:
+  Cin = 3, unaligned bases, Cout 3-4, k = 1).
 * ``head_conv_backward_plain``: the gradients with respect to x, the
   kernel and the bias in closed form, a loop over the k x k taps (the
   counterpart of the JAX package's ``_hc_bwd``, the VJP of the plain XLA
   conv); the CPU backward and the oracle of the backward kernel.
 * ``head_conv_backward_cuda``: the kernels of ``csrc/headconv_bwd.cu``,
-  both gradients from one staging and a fixed-order sum of the weight
-  gradient's per-block partials.
+  all three gradients from one staging, then a second launch that sums the
+  weight and bias gradients' per-block partials in a fixed order.
 * ``head_conv``: plain on the CPU, the kernel on a CUDA device; through
   :class:`HeadConvFunction` when a gradient is recorded, whose backward
   launches ``head_conv_backward_cuda`` on a CUDA tensor and runs
@@ -90,7 +92,7 @@ def head_conv_backward_plain(grad, x, kernel, bias=None, prepadded=False,
 
 
 def head_conv_variant(x, kernel):
-    """'tensor_core' or 'cuda_core' for an NHWC input and [k,k,Cin,Cout]
+    """'tensor_core' or 'reg_tile' for an NHWC input and [k,k,Cin,Cout]
     weights."""
     k, cin, cout = kernel.shape[0], kernel.shape[2], kernel.shape[3]
     aligned = (x.stride(3) == 1 and x.data_ptr() % 16 == 0
@@ -98,7 +100,7 @@ def head_conv_variant(x, kernel):
     if (x.dtype == torch.bfloat16 and k in (3, 5, 7) and cin in (16, 32, 64, 128)
             and cout <= 2 and x.shape[0] <= 65535 and aligned):
         return "tensor_core"
-    return "cuda_core"
+    return "reg_tile"
 
 
 def _check_args(name, x, kernel, bias, prepadded):
@@ -168,7 +170,7 @@ def head_conv_cuda(x, kernel, bias=None, prepadded=False):
 
 
 head_conv_cuda.launches = 0
-head_conv_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
+head_conv_cuda.variant_launches = {"tensor_core": 0, "reg_tile": 0}
 # by batch size N
 head_conv_cuda.batch_launches = collections.Counter()
 

@@ -10,6 +10,13 @@ and that ``chip_smoke.py`` holds the backward kernels
   none, Cout 1..4, Cin not a multiple of 16).
 * The same against the JAX package's ``_corr_bwd`` (D = 4) and ``_hc_bwd``
   (k = 1, Cout = 4) as tiny jitted VJPs, on inputs made with numpy.
+* The head conv backward kernel's decomposition in plain torch: tiles of
+  the input map, the channel chunks (16, or 32 for k <= 3), dx from a
+  register window of the staged cotangent per ky, dw from one walk over
+  each staged input row with the cotangent's last k columns in a window
+  (row groups added in order), and the per-block partials summed in the
+  second launch's order (each of 8 warps the partials w, w + 8, ..., then
+  the warps in order); against the closed form and ``_hc_bwd``.
 * The Functions reach the closed forms on the CPU, and the backward
   kernels' wrappers refuse CPU tensors.
 """
@@ -20,6 +27,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -139,6 +147,139 @@ def test_head_conv_backward_plain_matches_hc_bwd_k1(prepadded):
     for g, w in zip(got, want):
         # the weight and bias gradients sum over 120 pixels
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=ATOL32 * 10)
+
+
+# csrc/headconv_bwd.cu: tile rows (halved down to 2 for small maps) and
+# columns, pixels per dx thread, threads and most blocks of a launch, warps
+# of the partials' sum; channels per chunk: 32 for k <= 3, else 16
+HB_ROWS, HB_MIN_ROWS, HB_COLS, HB_SEG = 8, 2, 32, 8
+HB_THREADS, HB_MAX_BLOCKS, HB_REDUCE_WARPS = 256, 264, 8
+
+
+def _hb_tiles(n, in_h, in_w, rows):
+    return n * -(-in_h // rows) * -(-in_w // HB_COLS)
+
+
+def _hb_reduce(part):
+    """headconv_bwd_reduce_kernel's sum over the partials (dim 0), in
+    float32: warp w sums the partials w, w + 8, ... from zero, then the 8
+    warps' sums are added in order from zero."""
+    total = torch.zeros_like(part[0])
+    for warp in range(HB_REDUCE_WARPS):
+        s = torch.zeros_like(part[0])
+        for p in range(warp, len(part), HB_REDUCE_WARPS):
+            s = s + part[p]
+        total = total + s
+    return total
+
+
+def _head_conv_bwd_tiled(grad, x, kernel, bias, prepadded, max_blocks=HB_MAX_BLOCKS):
+    """The head conv backward kernel's arithmetic, in float32. Blocks stride
+    over rows x 32 tiles of the input map; per tile the cotangent is staged
+    with its k-1 halo (zero outside the output), per chunk of 16 channels
+    (32 for k <= 3) the input with its halo (zero outside the image and
+    past Cin). dx: per ky a
+    window of 8 + k - 1 staged cotangent vectors of the row of a strip of 8
+    pixels, tap kx reading window[r + k-1-kx]. dw: thread (group, ky, c)
+    walks staged row py + ky column by column, the cotangent at columns
+    i - kx in a window of k (zero outside 0..31); the row groups add into
+    the block's running sums in order. The per-block partials are summed as
+    the second launch sums them (:func:`_hb_reduce`).
+    Returns (dx, dw, db) and the number of partials."""
+    n, in_h, in_w, cin = x.shape
+    k, cout = kernel.shape[0], kernel.shape[3]
+    pad = 0 if prepadded else (k - 1) // 2
+    out_h, out_w = grad.shape[1:3]
+    rows = HB_ROWS
+    while rows > HB_MIN_ROWS and _hb_tiles(n, in_h, in_w, rows) < max_blocks:
+        rows //= 2
+    ntiles = _hb_tiles(n, in_h, in_w, rows)
+    blocks = min(ntiles, max_blocks)
+    hh, hw, win = rows + k - 1, HB_COLS + k - 1, HB_SEG + k - 1
+    chan = 32 if k <= 3 else 16
+    nchunks = -(-cin // chan)
+    # zero-filled sources of the staging, indexed from the staged origins
+    gsrc = torch.zeros(n, in_h + rows + 2 * k, in_w + HB_COLS + 2 * k, cout)
+    gsrc[:, k - 1 : k - 1 + out_h, k - 1 : k - 1 + out_w] = grad
+    xsrc = torch.zeros(n, in_h + rows + k, in_w + HB_COLS + k, nchunks * chan)
+    xsrc[:, pad : pad + in_h, pad : pad + in_w, :cin] = x
+    w = torch.zeros(k, k, nchunks * chan, cout)
+    w[:, :, :cin] = kernel
+    dx = torch.zeros(n, in_h + rows, in_w + HB_COLS, nchunks * chan)
+    part = torch.zeros(blocks, k, k, nchunks * chan, cout)
+    part_db = torch.zeros(blocks, cout)
+    tiles_x, tiles_y = -(-in_w // HB_COLS), -(-in_h // rows)
+    seg = torch.arange(HB_COLS // HB_SEG)[:, None] * HB_SEG + torch.arange(win)
+    for blk in range(blocks):
+        for tile in range(blk, ntiles, blocks):
+            b = tile // (tiles_x * tiles_y)
+            y0, x0 = (tile // tiles_x) % tiles_y * rows, tile % tiles_x * HB_COLS
+            # gh pixel (j, i) <-> output (y0 + pad - (k-1) + j, x0 + pad - (k-1) + i)
+            gh = gsrc[b, y0 + pad : y0 + pad + hh, x0 + pad : x0 + pad + hw]
+            gtile = torch.zeros(rows, hw, cout)  # the tile's outputs, zero past column 31
+            gtile[:, :HB_COLS] = gh[k - 1 - pad : k - 1 - pad + rows,
+                                    k - 1 - pad : k - 1 - pad + HB_COLS]
+            part_db[blk] += gtile.sum(dim=(0, 1))
+            for j in range(nchunks):
+                ch = slice(j * chan, (j + 1) * chan)
+                xs = xsrc[b, y0 : y0 + hh, x0 : x0 + hw, ch]
+                tdx = torch.zeros(rows, HB_COLS // HB_SEG, HB_SEG, chan)
+                for ky in range(k):
+                    window = gh[k - 1 - ky : k - 1 - ky + rows][:, seg]  # [rows, 4, win, cout]
+                    for kx in range(k):
+                        tdx += window[:, :, k - 1 - kx : k - 1 - kx + HB_SEG] @ w[ky, kx, ch].T
+                dx[b, y0 : y0 + rows, x0 : x0 + HB_COLS, ch] = tdx.reshape(rows, HB_COLS, -1)
+                groups = 1
+                while 2 * groups <= rows and 2 * groups * k * chan <= HB_THREADS:
+                    groups *= 2
+                for grp in range(groups):
+                    sw = torch.zeros(k, k, chan, cout)
+                    for py in range(grp, rows, groups):
+                        for ky in range(k):
+                            for kx in range(k):
+                                # column i meets the cotangent at column i - kx
+                                shifted = F.pad(gtile[py], (0, 0, kx, 0))[:hw]
+                                sw[ky, kx] += xs[py + ky].T @ shifted
+                    part[blk, :, :, ch] += sw
+    return dx[:, :in_h, :in_w, :cin], _hb_reduce(part)[:, :, :cin], _hb_reduce(part_db), blocks
+
+
+# (k, cout, prepadded, cin, n, h, w) of the input; the last field caps the
+# blocks (the kernel's 264 unless smaller, so that blocks stride over tiles
+# of 8 rows)
+HC_BWD_TILED_CASES = [(7, 2, False, 32, 2, 20, 70, HB_MAX_BLOCKS),
+                      (5, 2, False, 32, 1, 19, 40, 5),
+                      (3, 1, True, 16, 1, 11, 36, HB_MAX_BLOCKS),
+                      (3, 4, False, 20, 2, 7, 9, HB_MAX_BLOCKS),
+                      (1, 4, False, 12, 2, 6, 10, HB_MAX_BLOCKS),
+                      (7, 3, True, 8, 1, 13, 45, 3)]
+
+
+@pytest.mark.parametrize("k,cout,prepadded,cin,n,h,w,max_blocks", HC_BWD_TILED_CASES)
+def test_head_conv_backward_tiled_matches_plain_and_hc_bwd(k, cout, prepadded, cin, n, h, w,
+                                                           max_blocks):
+    """The ragged cases have H and W off the tile sizes and Cin off the
+    chunk (20, 12, 8); (1, 4, ..., 12, 2, 6, 10) is the map smaller than a
+    tile of ``test_head_conv_backward_plain_matches_hc_bwd_k1``; the first
+    case's 60 blocks give each warp of the partials' sum 7 or 8 of them."""
+    rng = np.random.RandomState(60 + 10 * k + cout)
+    x = rng.randn(n, h, w, cin).astype(np.float32)
+    kernel = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    grow = k - 1 if prepadded else 0
+    cot = rng.randn(n, h - grow, w - grow, cout).astype(np.float32)
+    *got, blocks = _head_conv_bwd_tiled(_t(cot), _t(x), _t(kernel), _t(bias), prepadded,
+                                        max_blocks)
+    if (k, max_blocks) == (7, HB_MAX_BLOCKS):
+        assert blocks >= 7 * HB_REDUCE_WARPS
+    plain = T_head.head_conv_backward_plain(_t(cot), _t(x), _t(kernel), _t(bias), prepadded)
+    want = jax.jit(functools.partial(_hc_bwd, prepadded))(
+        (jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias)), jnp.asarray(cot))
+    for g, p, wj in zip(got, plain, want):
+        assert g.shape == p.shape == wj.shape
+        # dw and db sum over up to 2 x 20 x 70 pixels
+        np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-5, atol=ATOL32 * 10)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wj), rtol=1e-5, atol=ATOL32 * 10)
 
 
 @pytest.mark.parametrize("name", ["correlation", "head_conv"])

@@ -7,6 +7,11 @@ and the JAX package, on inputs made from numpy seeds.
   view of f1), and a non-unit channel stride is refused.
 * ``csrc/headconv.cu`` (tensor_core): per output row, one GEMM with
   (dx, co) in N over 64 staged input columns, then the shifted sum over dx.
+* ``csrc/headconv.cu`` (reg_tile, float32 and odd shapes): 8 x 32 output
+  tiles, the input staged 16 channels at a time with the k-1 halo and zero
+  fill, each of 4 warps a channel quad of every chunk, a thread's strip of
+  8 pixels summed from a register window of 8 + k - 1 staged pixels per
+  (dy, quad), and the warps' partial outputs summed in warp order.
 * ``csrc/correlation.cu`` (tensor_core): per tile row, 16-pixel m-tile and
   dy, a 16 x 24 banded GEMM of which the 2D+1 diagonals are kept.
 
@@ -34,6 +39,10 @@ from dfvo_tpu.ops import headconv as J_head
 ATOL = 1e-5
 
 HC_COLS = 64  # staged input columns per head-conv block (csrc/headconv.cu)
+# the reg_tile head conv (csrc/headconv.cu): tile rows and columns, pixels
+# per strip, warps per block; each warp takes 2 channel quads of a chunk for
+# k <= 3, else 1
+RT_ROWS, RT_COLS, RT_SEG, RT_SPLIT = 8, 32, 8, 4
 CORR_COLS, CORR_F2_COLS = 32, 40  # correlation tile (csrc/correlation.cu)
 
 
@@ -69,11 +78,11 @@ def test_head_conv_weight_strides_address_the_oihw_parameter():
     # the bf16 main-path shapes take the tensor-core kernel, odd ones do not
     x = torch.zeros(2, 12, 40, 32, dtype=torch.bfloat16)
     assert T_head.head_conv_variant(x, kernel.bfloat16()) == "tensor_core"
-    assert T_head.head_conv_variant(x.float(), kernel) == "cuda_core"
+    assert T_head.head_conv_variant(x.float(), kernel) == "reg_tile"
     x3 = torch.zeros(2, 12, 40, 3, dtype=torch.bfloat16)
-    assert T_head.head_conv_variant(x3, torch.zeros(5, 5, 3, 2)) == "cuda_core"
+    assert T_head.head_conv_variant(x3, torch.zeros(5, 5, 3, 2)) == "reg_tile"
     buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
-    assert T_head.head_conv_variant(buf[1:].view(x.shape), kernel) == "cuda_core"
+    assert T_head.head_conv_variant(buf[1:].view(x.shape), kernel) == "reg_tile"
 
 
 def test_correlation_strides_address_the_subsampled_view():
@@ -149,6 +158,81 @@ def test_head_conv_row_gemm_matches_plain_and_jax(k, cout, prepadded):
     kern = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(np.float32)
     b = rng.randn(cout).astype(np.float32)
     got = _head_conv_row_gemm(_t(x), _t(kern), _t(b), prepadded)
+    plain = T_head.head_conv_plain(_t(x), _t(kern), _t(b), prepadded)
+    want = J_head.head_conv(jnp.asarray(x), jnp.asarray(kern), jnp.asarray(b),
+                            prepadded=prepadded)
+    assert got.shape == plain.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _head_conv_reg_tile(x, kernel, bias, prepadded):
+    """The reg_tile head conv's arithmetic. Per 8 x 32 output tile and chunk
+    of 16 channels (32 for k <= 3), the input with its k-1 halo is staged
+    with zero fill (outside the image and past Cin); warp s takes the
+    chunk's channel quads s (and s + 4), where any of its channels is below
+    Cin, in that order; per (dy, quad) a thread's
+    strip of 8 output pixels reads the window of 8 + k - 1 staged pixels of
+    its row and sums window[p + dx] against the (dy, dx) weights of the
+    quad (Cin zero-padded to a multiple of 4). The 4 warps' partial tiles
+    are summed in warp order and the bias added last."""
+    n, in_h, in_w, cin = x.shape
+    k, cout = kernel.shape[0], kernel.shape[3]
+    pad = 0 if prepadded else (k - 1) // 2
+    out_h, out_w = in_h + 2 * pad - (k - 1), in_w + 2 * pad - (k - 1)
+    qpw = 2 if k <= 3 else 1
+    chan = 4 * RT_SPLIT * qpw
+    nchunks = -(-cin // chan)
+    w = torch.zeros(k, k, -(-cin // 4) * 4, cout)
+    w[:, :, :cin] = kernel
+    win = RT_SEG + k - 1
+    sr, sc = RT_ROWS + k - 1, RT_COLS + k - 1
+    xp = torch.zeros(n, out_h + RT_ROWS + k, out_w + RT_COLS + k, nchunks * chan)
+    xp[:, pad : pad + in_h, pad : pad + in_w, :cin] = x  # the zero fill
+    # a strip's window: staged column strip * 8 + i, i < 8 + k - 1
+    cols = (torch.arange(RT_COLS // RT_SEG) * RT_SEG)[:, None] + torch.arange(win)
+    out = torch.zeros(n, out_h, out_w, cout)
+    for y0 in range(0, out_h, RT_ROWS):
+        for x0 in range(0, out_w, RT_COLS):
+            red = torch.zeros(RT_SPLIT, n, RT_ROWS, RT_COLS // RT_SEG, RT_SEG, cout)
+            for j in range(nchunks):
+                staged = xp[:, y0 : y0 + sr, x0 : x0 + sc, j * chan : (j + 1) * chan]
+                for s in range(RT_SPLIT):
+                    for qq in range(qpw):
+                        ql = qq * RT_SPLIT + s  # the quad within the chunk
+                        c = j * chan + 4 * ql
+                        if c >= cin:
+                            break
+                        quad = staged[..., 4 * ql : 4 * ql + 4]
+                        for dy in range(k):
+                            window = quad[:, dy : dy + RT_ROWS][:, :, cols]
+                            for dx in range(k):
+                                red[s] += window[:, :, :, dx : dx + RT_SEG] @ w[dy, dx, c : c + 4]
+            tile = sum(red[s] for s in range(RT_SPLIT)).reshape(n, RT_ROWS, RT_COLS, cout)
+            tile = tile + bias
+            th, tw = min(RT_ROWS, out_h - y0), min(RT_COLS, out_w - x0)
+            out[:, y0 : y0 + th, x0 : x0 + tw] = tile[:, :th, :tw]
+    return out
+
+
+# (k, cout, prepadded, cin, n, h, w) of the output: k 1-7, Cout 1-4, ragged
+# tiles (h, w not multiples of 8 and 32), Cin not a multiple of the chunk
+# (3, 8, 20, 40), maps smaller than one tile
+REG_TILE_CASES = [(7, 2, False, 32, 2, 11, 40), (5, 2, False, 32, 1, 8, 33),
+                  (3, 1, True, 16, 1, 9, 70), (3, 4, False, 20, 2, 5, 12),
+                  (1, 3, False, 3, 2, 5, 9), (7, 3, True, 8, 1, 6, 20),
+                  (5, 1, True, 40, 1, 10, 34)]
+
+
+@pytest.mark.parametrize("k,cout,prepadded,cin,n,h,w", REG_TILE_CASES)
+def test_head_conv_reg_tile_matches_plain_and_jax(k, cout, prepadded, cin, n, h, w):
+    rng = np.random.RandomState(300 + 10 * k + cout)
+    if prepadded:
+        h, w = h + k - 1, w + k - 1
+    x = rng.rand(n, h, w, cin).astype(np.float32)
+    kern = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(np.float32)
+    b = rng.randn(cout).astype(np.float32)
+    got = _head_conv_reg_tile(_t(x), _t(kern), _t(b), prepadded)
     plain = T_head.head_conv_plain(_t(x), _t(kern), _t(b), prepadded)
     want = J_head.head_conv(jnp.asarray(x), jnp.asarray(kern), jnp.asarray(b),
                             prepadded=prepadded)
