@@ -11,11 +11,13 @@ seconds, none caught:
 2. build: the CUDA kernels of dfvo_torch/csrc, compiled with nvcc for
    sm_90a; registers and spills of each kernel from `ptxas -v`.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the main path gives it, in float32 (the cost volume's
-   cuda_core and the head conv's reg_tile variants) and bfloat16 (the
+   every shape the main path gives it, in float32 (the cost volume's and
+   the head conv's reg_tile variants) and bfloat16 (the
    tensor_core variants of the head conv and the cost volume, the fused
    normalisation and filter from the raw confidence logits), and the
-   off-path cases (the head conv's reg_tile in bf16 at Cin = 3, an
+   off-path cases (the cost volume's reg_tile at C = 33, C = 24 in bf16,
+   C = 1536, a 1x1 map and an unaligned base, each launch of it equal bit
+   for bit to a second; the head conv's reg_tile in bf16 at Cin = 3, an
    unaligned base, Cout 3 and 4, k = 1).
 4. slice: DeepFrontend from options/examples/default_configuration.yml
    (192x640, bfloat16, seeded random weights) runs `infer` on 8 consecutive
@@ -81,9 +83,10 @@ seconds, none caught:
    and the filter at its five levels on the [2, ...] pair batch, the ten
    flow heads and the four disparity heads) against autograd of the plain
    version on the same inputs and cotangent, launching the float32
-   variants (cuda_core, reg_tile for the head conv; async_tile for the
-   filter) and, in the backward, each one's backward kernel once (the head
-   conv's weight and bias gradients equal bit for bit over two launches,
+   variants (reg_tile for the cost volume and the head conv; async_tile for
+   the filter) and, in the backward, each one's backward kernel once (the
+   cost volume's output, the filter's gradients and the head conv's weight
+   and bias gradients equal bit for bit over two launches, the head conv's
    in float32 and bf16); the filter's also at level 2 with ties
    at the minimal |raw| and with cotangents that are a permuted view and an
    expanded (stride-0) one; the backward kernels also in bf16 at those
@@ -134,7 +137,7 @@ seconds, none caught:
 15. hd3: default_configuration.yml with deep_flow.network: hd3 (192x640,
    bf16, seeded weights). The D = 4 cost volume at HD3's five level shapes
    (3x10x512 .. 48x160x64) at N = 2 and 64 against its plain version
-   (tensor_core up to 256 channels, cuda_core at 512) and its times per
+   (tensor_core up to 256 channels, reg_tile at 512) and its times per
    network call at N = 64 and N = 2 in bf16 and at N = 2 in float32 (an
    update) beside the bound; its Function at a flow update's N = 2 in
    float32 with the backward kernel at D = 4 (and that kernel in bf16)
@@ -291,10 +294,10 @@ SCAN_T_REL = 1e-3
 ABLATION_CFG = os.path.join(ROOT, "options", "examples", "ablation_self_flow_online.yml")
 # launches per update: LiteFlowNet in "two" mode on the [2, ...] forward and
 # backward pair (5 levels, 10 flow-delta heads) and Monodepth2's 4 disparity
-# heads, all float32 (cuda_core, reg_tile for the head conv; async_tile for
-# the filter); as many backward passes of each Function
+# heads, all float32 (reg_tile for the cost volume and the head conv;
+# async_tile for the filter); as many backward passes of each Function
 FT_PER_UPDATE = {"correlation": 5, "reg_dist_filter": 5, "head_conv": 14}
-FT_VARIANT = {"correlation": "cuda_core", "reg_dist_filter": "async_tile",
+FT_VARIANT = {"correlation": "reg_tile", "reg_dist_filter": "async_tile",
               "head_conv": "reg_tile"}
 FT_LR = 1e-5
 FT_CHUNK_PAIRS = 8
@@ -468,6 +471,8 @@ class Checker:
         counter = launch_counts()[kernel]
         # float32: max abs error <= 1e-4 * max(1, max|ref|)
         got = kernel_fn(*[prep(t) for t in inputs])
+        if kernel == "correlation":
+            same_launches(label + " float32", kernel_fn, prep, inputs, got)
         ref = plain_fn(*inputs)
         err = (got - ref).abs().max().item()
         scale = max(1.0, ref.abs().max().item())
@@ -481,9 +486,11 @@ class Checker:
         before = dict(getattr(counter, "variant_launches", {}))
         got = kernel_fn(*[prep(t) for t in inputs_bf])
         after = getattr(counter, "variant_launches", {})
-        ran = next((v for v in after if after[v] != before.get(v)), "cuda_core")
+        ran = next((v for v in after if after[v] != before.get(v)), "none")
         if got.dtype != torch.bfloat16:
             fail(f"{kernel} {label}: bfloat16 input gave {got.dtype}")
+        if kernel == "correlation" and ran == "reg_tile":
+            same_launches(label + " bfloat16", kernel_fn, prep, inputs_bf, got)
         ref = plain_fn(*[t.float() for t in inputs_bf])
         abs_err = (got.float() - ref).abs()
         excess = (abs_err - 2e-2 * ref.abs()).max().item()
@@ -503,6 +510,13 @@ class Checker:
               f"max abs err {abs_err.max().item():.2e})", flush=True)
 
 
+def same_launches(label, kernel_fn, prep, inputs, first):
+    """A second launch of the cost volume on the same inputs gives the first
+    one's output bit for bit (fixed summation order, no atomics)."""
+    if not torch.equal(kernel_fn(*[prep(t) for t in inputs]), first):
+        fail(f"correlation {label}: two launches differ")
+
+
 @phase("kernels")
 def kernels_phase(chk):
     from dfvo_torch.ops.correlation import correlation_plain
@@ -511,19 +525,27 @@ def kernels_phase(chk):
     from dfvo_torch.ops.regfilter import reg_dist_filter_cuda
 
     check_main_path_shapes(chk, (CORR_SHAPES, REG_SHAPES, LFN_HEADS, DEPTH_HEADS))
-    # off the main path (the cuda_core and reg_tile variants in bf16 too):
-    # channel counts that do not fill 16-byte vectors and a base address that
-    # is not 16-byte aligned take the kernels' scalar loads; the head conv at
-    # Cout 3 and 4 and k = 1 (reg_tile)
-    f1, f2 = chk.randn((2, 12, 40, 33)), chk.randn((2, 12, 40, 33))
-    chk.compare("correlation", "c=33 [2, 12, 40, 33]",
-                lambda a, b: correlation_cuda(a, b, 3, 1),
-                lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2), main_path=False)
-    f1, f2 = chk.randn((2, 12, 40, 64)), chk.randn((2, 12, 40, 64))
-    chk.compare("correlation", "unaligned [2, 12, 40, 64]",
-                lambda a, b: correlation_cuda(a, b, 3, 1),
-                lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2),
-                prep=misaligned, main_path=False)
+    # off the main path (the reg_tile variants in bf16 too): channel counts
+    # that do not fill 16-byte vectors and a base address that is not 16-byte
+    # aligned take the kernels' scalar loads; the cost volume at C = 24 in
+    # bf16 (vector staging outside the tensor-core set), at its largest C and
+    # on a 1x1 map; the head conv at Cout 3 and 4 and k = 1 (reg_tile)
+    if set(correlation_cuda.variant_launches) != {"tensor_core", "reg_tile"}:
+        fail(f"correlation variants {sorted(correlation_cuda.variant_launches)}, expected "
+             "tensor_core and reg_tile")
+    for label, shape, prep in (("c=33", (2, 12, 40, 33), None),
+                               ("unaligned", (2, 12, 40, 64), misaligned),
+                               ("c=24", (2, 12, 40, 24), None),
+                               ("c=1536", (2, 6, 20, 1536), None),
+                               ("1x1", (2, 1, 1, 64), None)):
+        f1, f2 = chk.randn(shape), chk.randn(shape)
+        chk.compare("correlation", f"{label} {list(shape)}",
+                    lambda a, b: correlation_cuda(a, b, 3, 1),
+                    lambda a, b: correlation_plain(a, b, 3, 1), (f1, f2), prep=prep,
+                    main_path=False)
+        ran = chk.variants["correlation", f"{label} {list(shape)}"]
+        if ran != ("tensor_core" if label == "1x1" else "reg_tile"):
+            fail(f"correlation {label}: bf16 ran {ran}")
     check_head(chk, "cin=3", 2, (24, 80, 3), 2, 5, False, head_conv_cuda,
                head_conv_plain, main_path=False)
     check_head(chk, "unaligned", 2, (24, 80, 32), 2, 5, False, head_conv_cuda,
@@ -991,8 +1013,11 @@ def device_ms(fn, reps=20, label="call"):
     one = []
     while True:
         one.append(trace(fn, 1)[1])
-        per_call = max(set(one), key=one.count)
-        if one.count(per_call) >= 2 and per_call > 0:
+        # the largest count that two traces agree on: a trace can only lose
+        # events, and one that lost every event of the call says nothing
+        agreed = [n for n in set(one) if n > 0 and one.count(n) >= 2]
+        if agreed:
+            per_call = max(agreed)
             break
         if len(one) == 6:
             fail(f"{label}: six traces of one call held {one} device events")
@@ -2254,6 +2279,8 @@ def ft_bwd_bf16(case, cot):
     ref = case["bwd_plain"](g.float(), *[t.float() for t in ins], *case["rest"], needs=needs)
     if case["kernel"] == "head_conv":
         same_bits(case, case["bwd_kfn"](g, *ins, *case["rest"], needs=needs)[1:], got[1:], "bf16")
+    elif case["kernel"] == "reg_dist_filter":
+        same_bits(case, case["bwd_kfn"](g, *ins, *case["rest"], needs=needs), got, "bf16")
     worst = 0.0
     for i, (a, r) in enumerate(zip(got, ref)):
         if a.dtype != torch.bfloat16:
@@ -2270,11 +2297,12 @@ def ft_bwd_bf16(case, cot):
 
 
 def same_bits(case, again, first, what):
-    """The head conv's weight and bias gradients of two backward launches
-    (their partials are summed in a fixed order): equal bit for bit."""
+    """The outputs of two launches (the head conv's weight and bias
+    gradients, the filter's gradients, the cost volume: their partials are
+    summed in a fixed order, with no atomics): equal bit for bit."""
     if not all(torch.equal(a, b) for a, b in zip(again, first)):
-        fail(f"finetune head_conv {case['label']}: {what} weight or bias gradient differs "
-             "between two launches")
+        fail(f"finetune {case['kernel']} {case['label']}: {what} outputs differ between two "
+             "launches")
 
 
 def ft_kernel_checks(cases):
@@ -2325,14 +2353,22 @@ def ft_kernel_checks(cases):
             needs = (True,) * len(ins)
             first = case["bwd_kfn"](cot, *ins, *rest, needs=needs)[1:]
             same_bits(case, case["bwd_kfn"](cot, *ins, *rest, needs=needs)[1:], first, "f32")
+        elif kernel == "reg_dist_filter":
+            same_bits(case, case["bwd_kfn"](cot, *ins, *rest), case["bwd_kfn"](cot, *ins, *rest),
+                      "f32 backward")
+        else:
+            with torch.no_grad():
+                same_bits(case, [case["kfn"](*ins, *rest)], [case["kfn"](*ins, *rest)],
+                          "f32 forward")
         worst[kernel][0] = max(worst[kernel][0], errs[0])
         worst[kernel][1] = max(worst[kernel][1], max(errs[1:]))
         e16 = ft_bwd_bf16(case, cot)
         worst_bf16[kernel] = max(worst_bf16[kernel], e16)
         print(f"  {kernel:16s} {label:34s} f32 {FT_VARIANT[kernel]}: out err {errs[0]:.2e}, "
               f"input grads err {max(errs[1:]):.2e} (backward kernel); bf16 backward kernel "
-              f"ok, max abs err {e16:.2e}"
-              + ("; dW, db equal bit for bit over two launches" if kernel == "head_conv" else ""),
+              f"ok, max abs err {e16:.2e}; "
+              + {"head_conv": "dW, db", "reg_dist_filter": "gradients",
+                 "correlation": "out"}[kernel] + " equal bit for bit over two launches",
               flush=True)
     return worst, worst_bf16
 
@@ -2975,13 +3011,11 @@ def extend_phase(chk, seed, out_dir):
         timing_cases(chk, (*shapes[:3], ()), batches=((2, 1, (6, 5, 4, 3, 2)),)),
         per=f"flow export pair (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
     # the flow finetuning's Functions at this feed (N = 2, the flow heads),
-    # and the filter's and the head conv's forward and backward times per
-    # update
+    # and their forward and backward times per update
     ft = ft_cases(chk, shapes=shapes, depth=False)
     ft_errs, ft_errs_bf16 = ft_kernel_checks(ft)
     ft_rows, ft_sums = ft_kernel_times(
-        [c for c in ft if c["kernel"] in ("reg_dist_filter", "head_conv")],
-        per=f"flow update (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
+        ft, per=f"flow update (N = 2, {fe.flow_feed[1]}x{fe.flow_feed[0]})")
 
     result = {"size": list(EXT_SIZE), "flow_feed": list(fe.flow_feed),
               "depth_feed": list(fe.depth_feed), "kernel_rows": rows, "kernel_sums": sums,
@@ -3233,7 +3267,7 @@ def hd3_variant(c):
     """The variant a bf16 D = 4 launch takes at ``c`` channels."""
     from dfvo_torch.ops.pallas_corr import TC_MAX_CHANNELS
 
-    return "tensor_core" if c <= TC_MAX_CHANNELS else "cuda_core"
+    return "tensor_core" if c <= TC_MAX_CHANNELS else "reg_tile"
 
 
 def hd3_load_cfg(dtype=None, finetune=False):
@@ -3340,7 +3374,7 @@ def hd3_check_cli(r, execution, frames, finetune):
     want_ft = {k: updates * HD3_FT_PER_UPDATE[k] for k in PER_CALL}
     tc_levels = sum(hd3_variant(c) == "tensor_core" for c in HD3_CHANNELS)
     want_corr = {"tensor_core": n_calls * tc_levels,
-                 "cuda_core": n_calls * (5 - tc_levels) + want_ft["correlation"]}
+                 "reg_tile": n_calls * (5 - tc_levels) + want_ft["correlation"]}
     print(f"  {label}: launches {r['launches']} (expected {want}: {HD3_PER_CALL} per network "
           f"call, {HD3_FT_PER_UPDATE} per update), by window {r['disp_launches']}, by variant "
           f"{r['variants']}, Function backward passes {r['backward_calls']}")
@@ -4355,7 +4389,7 @@ def main():
     kernels.append({
         "name": "correlation_d4", "route": "cuda", "source": "dfvo_torch/csrc/correlation.cu",
         "replaces": "dfvo_tpu/ops/pallas_corr.py:30 (HD3, dfvo_tpu/models/hd3.py:484)",
-        "variant": "tensor_core (C <= 256), cuda_core (C = 512)",
+        "variant": "tensor_core (C <= 256), reg_tile (C = 512)",
         "launches": hd3["launches_d4"],
         "launches_per_frame": hd3["steps"]["frame_step"]["d4_launches_per_call"],
         "launches_per_chunk": hd3["steps"]["chunk_step"]["d4_launches_per_call"],
@@ -4387,7 +4421,7 @@ def main():
         ms_upd = multiseq["kernels"]["update_sums"][name]
         entry = {
             "name": f"{name}_backward", "route": "cuda", "source": src, "replaces": rep,
-            "variant": "cuda_core (f32 FMA)",
+            "variant": "CUDA cores (f32 FMA)",
             "launches": sum(finetune["cli"][x]["bwd_launches"][name] for x in ("frame", "scan")),
             "launches_per_update": ft["launches_per_update"],
             "max_abs_err": finetune["kernel_errs"][name][1],
@@ -4398,9 +4432,8 @@ def main():
                                    for x in ("frame", "scan")),
             "at_multiseq_update_n8": {k: ms_upd[k] for k in (
                 "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}}
-        if name in ("reg_dist_filter", "head_conv"):
-            entry["at_370x1226_update"] = {k: extend["ft_kernel_sums"][name][k] for k in (
-                "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}
+        entry["at_370x1226_update"] = {k: extend["ft_kernel_sums"][name][k] for k in (
+            "bwd_ms", "plain_bwd_ms", "bwd_bound_ms", "bwd_bound_by", "library_bwd_ms")}
         if name == "correlation":
             entry["launches_hd3"] = sum(hd3["cli"][x]["bwd_launches"][name]
                                         for x in ("frame_finetune", "scan_finetune"))
@@ -4428,6 +4461,30 @@ def main():
             "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_bound_by", "library_fwd_ms")},
         "at_multiseq_update_n8": {k: ms_ft[k] for k in (
             "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_bound_by", "library_fwd_ms")}})
+    # the cost volume's float32 forward (reg_tile), its five levels in a
+    # finetuning update: times per update at 192x640 (N = 2), launches over
+    # both finetuning CLI runs; at the extend feed, N = 8 and HD3's D = 4
+    ft = finetune["kernel_sums"]["correlation"]
+    ext_ft = extend["ft_kernel_sums"]["correlation"]
+    ms_ft = multiseq["kernels"]["update_sums"]["correlation"]
+    kernels.insert(1, {
+        "name": "correlation_f32", "route": "cuda", "source": "dfvo_torch/csrc/correlation.cu",
+        "replaces": "dfvo_tpu/ops/pallas_corr.py:30 (in float32, the finetuning update)",
+        "variant": FT_VARIANT["correlation"],
+        "launches": sum(finetune["cli"][x]["launches_finetune"]["correlation"]
+                        for x in ("frame", "scan")),
+        "launches_per_update": ft["launches_per_update"],
+        "max_abs_err": finetune["kernel_errs"]["correlation"][0],
+        "ms": ft["fwd_ms"], "plain_ms": ft["plain_fwd_ms"], "bound_ms": ft["fwd_bound_ms"],
+        "bound_by": ft["fwd_bound_by"], "library_ms": ft["library_fwd_ms"],
+        "launches_extend": sum(extend["cli"][x]["launches_finetune"]["correlation"]
+                               for x in ("frame", "scan")),
+        "at_370x1226_update": {k: ext_ft[k] for k in (
+            "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_bound_by", "library_fwd_ms")},
+        "at_multiseq_update_n8": {k: ms_ft[k] for k in (
+            "fwd_ms", "plain_fwd_ms", "fwd_bound_ms", "fwd_bound_by", "library_fwd_ms")},
+        "at_hd3_d4_update": {k: d4["update"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     report = {
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "infer_ms_per_frame": infer_ms, "infer_chunk_ms_per_frame": chunk_ms,

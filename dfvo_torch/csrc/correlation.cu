@@ -32,117 +32,315 @@
 // The staged pixel pitch is C + 8 elements, which keeps the eight 16-byte
 // rows of every ldmatrix on distinct banks.
 //
-// cuda_core (dfvo_correlation): float32, C not a multiple of 16 and
-// unaligned bases. One warp per output pixel: the warp stages its f1 row
-// once in shared memory as f32; lane l owns displacements l, l+32, ... and
-// walks the channels of its displaced f2 row with 16-byte vector loads where
-// aligned (else a scalar loop) while every lane reads the same f1 words (a
-// broadcast); the (2D+1)^2 outputs of a pixel are written by consecutive
-// lanes. The f2 re-reads are served by L1.
+// reg_tile (dfvo_correlation): float32 (every cost volume of the
+// finetuning update: LiteFlowNet's levels 6 -> 2, HD3's five levels at
+// D = 4) and bf16 outside the tensor_core set (HD3's two 512-channel levels
+// on every network call, C not a multiple of 16, unaligned pixels). f32
+// multiply-adds on the CUDA cores, never TF32 (the float32 update is held to
+// the CPU within 1e-3). What bounds it on the H100: device memory at the
+// large levels (level 2 of an update, [2, 48, 160, 64] with f1 a stride-2
+// view: 10.9 MB, 3.3 us at 3.35 TB/s, against 0.10 GFLOP, 1.5 us at the
+// 67 TFLOP/s float32 rate) and latency at the small ones (level 6 is 240
+// pixels). So the design keeps the FMA pipe fed from registers and spreads
+// a small map over many SMs:
+//   * a block owns an 8 x 16 output tile of one item and stages the f1 tile
+//     and the f2 tile with its D halo in shared memory, a chunk of channels
+//     at a time (64 bytes a pixel: 16 float32 or 32 bf16 channels), by
+//     16-byte cp.async with zero fill outside the image (that is the
+//     padding) and past C, double-buffered: the next chunk's copy is in
+//     flight while this chunk computes. Pixels that are not 16-byte aligned
+//     (or C not a multiple of a 16-byte vector) are staged element by element
+//     through the same buffers;
+//   * warp w takes displacement row dy = w - D (2D + 1 warps), and lane l a
+//     strip of 4 output pixels of tile row l % 8, columns 4 (l / 8) ..: per
+//     channel quad the thread reads its strip's 4 f1 pixels and the window of
+//     4 + 2D f2 pixels of row y + dy once into registers (16-byte loads of
+//     4 float32 channels, 8 bytes of bf16; the 8 rows of a quarter-warp sit
+//     on distinct banks, the staged row spanning an odd number of 16-byte
+//     units) and runs 4 x (2D + 1) x 4 FMAs from them;
+//   * a small map is split over the channels: a thread block cluster of CS
+//     blocks (1, 2, 4 or 8, chosen from the shape so that the grid covers the
+//     SMs) owns one tile, block r the chunks r, r + CS, ...; each block puts
+//     its partial tile in its shared memory, and after a cluster barrier block
+//     r sums the CS partials of tile rows r, r + CS, ... in rank order over
+//     distributed shared memory, scales by 1/C and stores each tile row's
+//     (2D+1)^2 outputs per pixel as one contiguous run.
+// Every sum runs in a fixed order (channels in order within a block, the
+// blocks in rank order), with no atomics: two launches give equal outputs
+// bit for bit.
 
 #include <algorithm>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace dfvo {
 
-// ---- cuda_core variant ----
+// ---- reg_tile variant ----
 
-constexpr int kCorrWarps = 8;  // pixels (warps) per block
-constexpr int kCorrMaxChannels = 1536;  // 8 warps x 1536 x 4 B = 48 KB smem
+constexpr int kCrRows = 8;     // tile rows: the 8 lanes of a quarter-warp
+constexpr int kCrSeg = 4;      // output pixels of a row per thread
+constexpr int kCrStrips = 4;   // strips per tile row: the 4 quarter-warps
+constexpr int kCrCols = kCrSeg * kCrStrips;
+constexpr int kCrPixBytes = 64;  // staged bytes of a pixel per chunk
+constexpr int kCrMaxChannels = 1536;
+constexpr int kCrMaxCluster = 8;     // the portable cluster size
+constexpr int kCrTargetBlocks = 132;  // one block for each SM of an H100
 
-template <typename T, bool VEC>
-__device__ __forceinline__ float dot_row(const float* __restrict__ row,
-                                         const T* __restrict__ bp, int c) {
-  float s = 0.f;
-  if constexpr (VEC) {
-    constexpr int E = kVec<T>;
-    for (int ci = 0; ci < c; ci += E) {
-      float v[E];
-      load16(bp + ci, v);
-#pragma unroll
-      for (int e = 0; e < E; e += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(row + ci + e);
-        s += a.x * v[e] + a.y * v[e + 1] + a.z * v[e + 2] + a.w * v[e + 3];
-      }
-    }
-  } else {
-    for (int ci = 0; ci < c; ++ci) s += row[ci] * to_f32(bp[ci]);
-  }
-  return s;
+template <int D>
+struct CrTile {
+  static constexpr int K = 2 * D + 1;
+  static constexpr int KK = K * K;
+  static constexpr int F2R = kCrRows + 2 * D;  // staged f2 rows
+  static constexpr int F2C = kCrCols + 2 * D;  // staged f2 columns
+  static constexpr int THREADS = 32 * K;       // one warp per dy
+  // bytes of a staged row: an odd number of 16-byte units
+  static constexpr int RP1 = kCrCols * kCrPixBytes + 16;
+  static constexpr int RP2 = F2C * kCrPixBytes + 16;
+  static constexpr int BUF = kCrRows * RP1 + F2R * RP2;  // one staging buffer
+  static constexpr int RED = static_cast<int>(sizeof(float)) * kCrRows * kCrCols * KK;
+  static constexpr int SMEM = 2 * BUF > RED ? 2 * BUF : RED;
+};
+
+struct CrArgs {
+  const void* f1;
+  PixStrides s1;
+  const void* f2;
+  PixStrides s2;
+  void* out;  // dense [n, h, w, (2D+1)^2]
+  int n, h, w, c, cs;
+  float inv_c;
+};
+
+// Four consecutive staged channels, widened to f32.
+__device__ __forceinline__ void cr_lds4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void cr_lds4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+// The cluster size for a map: the smallest of 1, 2, 4, 8 whose grid covers
+// kCrTargetBlocks, with at least one chunk of channels per block.
+inline int cr_cluster(long long tiles, int nchunks) {
+  int cs = 1;
+  while (cs < kCrMaxCluster && 2 * cs <= nchunks && tiles * cs < kCrTargetBlocks) cs *= 2;
+  return cs;
 }
 
 template <typename T, int D, bool VEC>
-__global__ void __launch_bounds__(kCorrWarps * 32)
-    correlation_kernel(const T* __restrict__ f1, PixStrides s1,
-                       const T* __restrict__ f2, PixStrides s2,
-                       T* __restrict__ out, int n, int h, int w, int c,
-                       float inv_c) {
-  constexpr int K = 2 * D + 1;
-  constexpr int KK = K * K;
-  constexpr int ROUNDS = (KK + 31) / 32;
-  extern __shared__ float4 corr_smem[];  // float4: 16-byte aligned rows
+__global__ void __launch_bounds__(CrTile<D>::THREADS, 2)  // two blocks an SM
+    correlation_rt_kernel(CrArgs a) {
+  using L = CrTile<D>;
+  constexpr int K = L::K, KK = L::KK, F2C = L::F2C, NT = L::THREADS;
+  constexpr int CH = kCrPixBytes / static_cast<int>(sizeof(T));  // channels per chunk
+  constexpr int E = kVec<T>;  // channels per 16-byte piece
+  constexpr int PIECES = CH / E;
+  constexpr int WIN = kCrSeg + 2 * D;  // a strip's window of f2 pixels
+  extern __shared__ __align__(16) unsigned char cr_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = a.cs;
+  const int rank = static_cast<int>(cluster.block_rank());
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long pix = static_cast<long long>(blockIdx.x) * kCorrWarps + warp;
-  const long long total = static_cast<long long>(n) * h * w;
-  if (pix >= total) return;  // whole warp leaves together
-  const int x = static_cast<int>(pix % w);
-  const int y = static_cast<int>((pix / w) % h);
-  const long long b = pix / (static_cast<long long>(w) * h);
+  const int tid = threadIdx.x;
+  const int dyi = tid >> 5;  // the warp's displacement row, dy + D
+  const int row = tid & 7;
+  const int strip = (tid >> 3) & 3;
+  const int tiles_x = (a.w + kCrCols - 1) / kCrCols;
+  const int tiles_y = (a.h + kCrRows - 1) / kCrRows;
+  const long long tile = blockIdx.x / cs;
+  const int x0 = static_cast<int>(tile % tiles_x) * kCrCols;
+  const int y0 = static_cast<int>((tile / tiles_x) % tiles_y) * kCrRows;
+  const long long b = tile / (static_cast<long long>(tiles_x) * tiles_y);
+  const T* f1b = static_cast<const T*>(a.f1) + b * a.s1.n;
+  const T* f2b = static_cast<const T*>(a.f2) + b * a.s2.n;
+  const int c = a.c;
+  const int nchunks = (c + CH - 1) / CH;
 
-  float* row = reinterpret_cast<float*>(corr_smem) + warp * c;
-  const T* a = f1 + b * s1.n + y * s1.h + x * s1.w;
-  for (int ci = lane; ci < c; ci += 32) row[ci] = to_f32(a[ci]);
-  __syncwarp();
+  // chunk j (channels CH j ..) of the f1 tile, staged pixel (r, col) <->
+  // (y0 + r, x0 + col), and of the f2 tile, (r, col) <-> (y0 - D + r,
+  // x0 - D + col); zero outside the image and past c
+  auto stage = [&](int j, unsigned char* buf) {
+    const int c0 = j * CH;
+    unsigned char* t2 = buf + kCrRows * L::RP1;
+    if constexpr (VEC) {
+      for (int i = tid; i < kCrRows * kCrCols * PIECES; i += NT) {
+        const int pix = i / PIECES, pc = i - pix * PIECES;
+        const int r = pix / kCrCols, col = pix - r * kCrCols;
+        const int y = y0 + r, x = x0 + col, ch = c0 + pc * E;
+        const bool ok = y < a.h && x < a.w && ch < c;
+        cp_async16(buf + r * L::RP1 + col * kCrPixBytes + pc * 16,
+                   ok ? f1b + y * a.s1.h + x * a.s1.w + ch : f1b, ok);
+      }
+      for (int i = tid; i < L::F2R * F2C * PIECES; i += NT) {
+        const int pix = i / PIECES, pc = i - pix * PIECES;
+        const int r = pix / F2C, col = pix - r * F2C;
+        const int y = y0 - D + r, x = x0 - D + col, ch = c0 + pc * E;
+        const bool ok = y >= 0 && y < a.h && x >= 0 && x < a.w && ch < c;
+        cp_async16(t2 + r * L::RP2 + col * kCrPixBytes + pc * 16,
+                   ok ? f2b + y * a.s2.h + x * a.s2.w + ch : f2b, ok);
+      }
+    } else {
+      for (int i = tid; i < kCrRows * kCrCols * CH; i += NT) {
+        const int pix = i / CH, cc = i - pix * CH;
+        const int r = pix / kCrCols, col = pix - r * kCrCols;
+        const int y = y0 + r, x = x0 + col, ch = c0 + cc;
+        const bool ok = y < a.h && x < a.w && ch < c;
+        *reinterpret_cast<T*>(buf + r * L::RP1 + col * kCrPixBytes + cc * sizeof(T)) =
+            ok ? f1b[y * a.s1.h + x * a.s1.w + ch] : from_f32<T>(0.f);
+      }
+      for (int i = tid; i < L::F2R * F2C * CH; i += NT) {
+        const int pix = i / CH, cc = i - pix * CH;
+        const int r = pix / F2C, col = pix - r * F2C;
+        const int y = y0 - D + r, x = x0 - D + col, ch = c0 + cc;
+        const bool ok = y >= 0 && y < a.h && x >= 0 && x < a.w && ch < c;
+        *reinterpret_cast<T*>(t2 + r * L::RP2 + col * kCrPixBytes + cc * sizeof(T)) =
+            ok ? f2b[y * a.s2.h + x * a.s2.w + ch] : from_f32<T>(0.f);
+      }
+    }
+  };
 
-  T* o = out + pix * KK;
+  unsigned char* bufs[2] = {cr_smem, cr_smem + L::BUF};
+  float acc[kCrSeg][K];
 #pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const int k = r * 32 + lane;
-    if (k < KK) {
-      const int yy = y + k / K - D;
-      const int xx = x + k % K - D;
-      float s = 0.f;
-      if (yy >= 0 && yy < h && xx >= 0 && xx < w)
-        s = dot_row<T, VEC>(row, f2 + b * s2.n + yy * s2.h + xx * s2.w, c);
-      o[k] = from_f32<T>(s * inv_c);
+  for (int p = 0; p < kCrSeg; ++p)
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx) acc[p][dx] = 0.f;
+
+  // this block's chunks: rank, rank + cs, ...
+  const int mine = rank < nchunks ? (nchunks - 1 - rank) / cs + 1 : 0;
+  if (mine > 0) stage(rank, bufs[0]);
+  cp_async_commit();
+  for (int t = 0; t < mine; ++t) {
+    const int j = rank + t * cs;
+    if (t + 1 < mine) {
+      stage(j + cs, bufs[(t + 1) & 1]);  // its buffer's last reads ended at t - 1's barrier
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* buf = bufs[t & 1];
+    const int nq = min(CH, c - j * CH + 3) / 4;  // channel quads holding a channel below c
+    const unsigned char* pa = buf + row * L::RP1 + strip * kCrSeg * kCrPixBytes;
+    const unsigned char* pb =
+        buf + kCrRows * L::RP1 + (row + dyi) * L::RP2 + strip * kCrSeg * kCrPixBytes;
+#pragma unroll 1
+    for (int q = 0; q < nq; ++q) {
+      const int off = q * 4 * static_cast<int>(sizeof(T));
+      float fa[kCrSeg][4];
+#pragma unroll
+      for (int p = 0; p < kCrSeg; ++p)
+        cr_lds4(reinterpret_cast<const T*>(pa + p * kCrPixBytes + off), fa[p]);
+#pragma unroll
+      for (int i = 0; i < WIN; ++i) {
+        float fb[4];
+        cr_lds4(reinterpret_cast<const T*>(pb + i * kCrPixBytes + off), fb);
+#pragma unroll
+        for (int p = 0; p < kCrSeg; ++p) {
+          const int dx = i - p;
+          if (dx >= 0 && dx < K) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[p][dx] = fmaf(fa[p][e], fb[e], acc[p][dx]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this chunk's buffer is free
+  }
+
+  // the block's partial tile, red[pixel][(dy + D) K + dx + D], over the
+  // staging buffers; then block r sums tile rows r, r + cs, ... over the
+  // cluster's partials in rank order
+  float* red = reinterpret_cast<float*>(cr_smem);
+#pragma unroll
+  for (int p = 0; p < kCrSeg; ++p)
+#pragma unroll
+    for (int dx = 0; dx < K; ++dx)
+      red[(row * kCrCols + strip * kCrSeg + p) * KK + dyi * K + dx] = acc[p][dx];
+  cluster.sync();
+  const float* parts[kCrMaxCluster];  // the cluster's partial tiles, by rank
+#pragma unroll
+  for (int q = 0; q < kCrMaxCluster; ++q) parts[q] = cluster.map_shared_rank(red, q < cs ? q : 0);
+  T* out = static_cast<T*>(a.out);
+  const int nx = min(kCrCols, a.w - x0);
+  for (int r = rank; r < kCrRows && y0 + r < a.h; r += cs) {
+    T* dst = out + ((b * a.h + y0 + r) * a.w + x0) * KK;
+    const int o = r * kCrCols * KK;
+#pragma unroll 2
+    for (int i = tid; i < nx * KK; i += NT) {
+      float v[kCrMaxCluster];  // every rank's load in flight at once
+#pragma unroll
+      for (int q = 0; q < kCrMaxCluster; ++q) v[q] = q < cs ? parts[q][o + i] : 0.f;
+      float sum = v[0];
+#pragma unroll
+      for (int q = 1; q < kCrMaxCluster; ++q) sum = q < cs ? sum + v[q] : sum;
+      dst[i] = from_f32<T>(sum * a.inv_c);
     }
   }
+  cluster.sync();  // no block leaves while its partial tile is read
+}
+
+template <typename T, int D, bool VEC>
+static int launch_correlation_rt_v(const CrArgs& a, unsigned blocks, cudaStream_t stream) {
+  auto kernel = correlation_rt_kernel<T, D, VEC>;
+  cudaError_t err = allow_smem(kernel, CrTile<D>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(CrTile<D>::THREADS);
+  cfg.dynamicSmemBytes = CrTile<D>::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-static void launch_correlation_d(const void* f1, PixStrides s1, const void* f2,
-                                 PixStrides s2, void* out, int n, int h, int w,
-                                 int c, cudaStream_t stream) {
-  const long long total = static_cast<long long>(n) * h * w;
-  const dim3 grid(ceil_div(total, kCorrWarps));
-  const dim3 block(kCorrWarps * 32);
-  const size_t smem = sizeof(float) * kCorrWarps * c;
-  const float inv_c = 1.f / static_cast<float>(c);
-  const T* a = static_cast<const T*>(f1);
-  const T* b = static_cast<const T*>(f2);
-  T* o = static_cast<T*>(out);
-  // vector path: every f2 pixel 16-byte aligned, and f1 rows in shared
-  // memory that stay 16-byte aligned (c a multiple of 4 floats)
+static int launch_correlation_rt(const void* f1, PixStrides s1, const void* f2, PixStrides s2,
+                                 void* out, int n, int h, int w, int c, cudaStream_t stream) {
+  constexpr int CH = kCrPixBytes / static_cast<int>(sizeof(T));
+  const long long tiles = static_cast<long long>(n) * ceil_div(h, kCrRows) * ceil_div(w, kCrCols);
+  const int cs = cr_cluster(tiles, (c + CH - 1) / CH);
+  if (tiles * cs > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const CrArgs a{f1, s1, f2, s2, out, n, h, w, c, cs, 1.f / static_cast<float>(c)};
+  // vector staging: every pixel 16-byte aligned, c a multiple of a vector
   constexpr int E = kVec<T>;
-  const bool vec = vec_ok<T>(f2, c) && c % 4 == 0 && s2.n % E == 0 &&
-                   s2.h % E == 0 && s2.w % E == 0;
-  if (vec)
-    correlation_kernel<T, D, true><<<grid, block, smem, stream>>>(a, s1, b, s2, o, n, h, w, c, inv_c);
-  else
-    correlation_kernel<T, D, false><<<grid, block, smem, stream>>>(a, s1, b, s2, o, n, h, w, c, inv_c);
+  const bool vec = vec_ok<T>(f1, c) && vec_ok<T>(f2, c) && s1.n % E == 0 && s1.h % E == 0 &&
+                   s1.w % E == 0 && s2.n % E == 0 && s2.h % E == 0 && s2.w % E == 0;
+  const unsigned blocks = static_cast<unsigned>(tiles * cs);
+  if (vec) return launch_correlation_rt_v<T, D, true>(a, blocks, stream);
+  return launch_correlation_rt_v<T, D, false>(a, blocks, stream);
 }
 
 template <typename T>
-static void launch_correlation(const void* f1, PixStrides s1, const void* f2,
-                               PixStrides s2, void* out, int n, int h, int w,
-                               int c, int max_disp, cudaStream_t stream) {
-  if (max_disp == 3)
-    launch_correlation_d<T, 3>(f1, s1, f2, s2, out, n, h, w, c, stream);
-  else
-    launch_correlation_d<T, 4>(f1, s1, f2, s2, out, n, h, w, c, stream);
+static int launch_correlation(const void* f1, PixStrides s1, const void* f2, PixStrides s2,
+                              void* out, int n, int h, int w, int c, int max_disp,
+                              cudaStream_t stream) {
+  if (max_disp == 3) return launch_correlation_rt<T, 3>(f1, s1, f2, s2, out, n, h, w, c, stream);
+  return launch_correlation_rt<T, 4>(f1, s1, f2, s2, out, n, h, w, c, stream);
 }
 
 // ---- tensor_core variant ----
@@ -298,7 +496,7 @@ static int launch_correlation_tc(const void* f1, PixStrides s1, const void* f2,
 
 }  // namespace dfvo
 
-// cuda_core variant. f1, f2: [n, h, w, c] with element strides (s?n, s?h,
+// reg_tile variant. f1, f2: [n, h, w, c] with element strides (s?n, s?h,
 // s?w) and unit channel stride; out: dense [n, h, w, (2D+1)^2].
 extern "C" int dfvo_correlation(const void* f1, long long s1n, long long s1h,
                                 long long s1w, const void* f2, long long s2n,
@@ -306,18 +504,16 @@ extern "C" int dfvo_correlation(const void* f1, long long s1n, long long s1h,
                                 int h, int w, int c, int max_disp, int dtype,
                                 void* stream) {
   using namespace dfvo;
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c > kCorrMaxChannels ||
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || c > kCrMaxChannels ||
       (max_disp != 3 && max_disp != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   const PixStrides s1{s1n, s1h, s1w}, s2{s2n, s2h, s2w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    launch_correlation<float>(f1, s1, f2, s2, out, n, h, w, c, max_disp, s);
-  else if (dtype == kBFloat16)
-    launch_correlation<__nv_bfloat16>(f1, s1, f2, s2, out, n, h, w, c, max_disp, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_correlation<float>(f1, s1, f2, s2, out, n, h, w, c, max_disp, s);
+  if (dtype == kBFloat16)
+    return launch_correlation<__nv_bfloat16>(f1, s1, f2, s2, out, n, h, w, c, max_disp, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // tensor_core variant: bf16 only, c a multiple of 16 up to 256, every pixel

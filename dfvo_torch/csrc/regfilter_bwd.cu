@@ -31,34 +31,40 @@
 // rate). The plain VJP it replaces recomputes the forward with autograd
 // and launches a small kernel for each of its ops.
 //
-// Design: two launches, no atomics, no output with two writers.
-// * rf_bwd_pixels: a block of 256 threads walks 8 x 32 pixel tiles (at
-//   most 264 blocks, striding over the tiles), one thread per pixel. It
-//   stages the tile's flow with a (k-1)/2 halo and the tile's raw taps in
-//   shared memory as f32 (the flow zero outside the image: the padding).
-//   The taps of a tile row are one contiguous span, copied element by
-//   element with consecutive threads on consecutive elements (in float32
-//   one 4-byte cp.async each, all in flight at once), so rows need no
-//   alignment (level 6's 360-byte rows) and the reads are coalesced. A
-//   thread computes its pixel's m, each e_j (kept in shared memory), D, out
-//   and c, and draw in place of its raw taps, which the block then writes
-//   out as it read them; and, for the gather, (c_x, c_y, m) of its pixel to
-//   a workspace. Then each of the 2k*k + 2 parameter-gradient entries has
-//   owners, one per segment of the tile's pixels, which sum its terms from
-//   shared memory; the first owner adds the segments in order into a
-//   running sum in its register, and the block writes its partial at the
-//   end. At k = 7 the staging takes 105 KB: two blocks an SM. (Holding a
-//   pixel's taps in registers instead takes 255 registers at k = 7, one
-//   block an SM, and reading them lane-strided touches 32 cache lines per
-//   warp access.)
-// * rf_bwd_gather: one thread per pixel q gathers dflow(q) over its k*k
-//   neighbours p = q - off_j: c and m of p from the workspace and the one
-//   raw tap raw_j(p), whose e_j it recomputes as the first pass did, so each
-//   raw value is read once more in all. Every load goes out, at a clamped
-//   address where p lies outside the image, so that none waits on a branch.
-//   One block more, the last, sums the parameter partials of the first pass
-//   in a fixed order (partial 0, 1, ... for each entry) and writes dwx, dbx,
-//   dwy, dby; the gradients do not change from run to run.
+// Design: one pass over the raw map, then a small fixed-order sum; no
+// atomics, no output with two writers, no workspace but the per-tile
+// parameter partials.
+// * rf_bwd_tile: a block owns a tile of pixels, 16 x 16 at k = 7 and 8 x 16
+//   at k = 3 and 5, one thread each. It stages the raw taps of the tile and
+//   of its (k-1)/2 halo, and the flow of that region with its own (k-1)/2
+//   halo, in shared memory as f32 (zero outside the image: the padding).
+//   Each staged raw row is one contiguous span in memory, copied by a warp
+//   with 16-byte cp.async between 4-byte head and tail copies; the staged
+//   rows are placed so that shared and device addresses agree modulo 16
+//   bytes, so no row needs alignment. bf16 data is staged by converting
+//   loads. The weights and the cotangent of the thread's staged pixels are
+//   fetched while the copies fly. Every loop over the k*k taps is unrolled,
+//   so a tap's shared-memory reads take constant offsets. Then, in phases
+//   separated by barriers:
+//   - every staged pixel p (tile and halo) computes m, D and c = g / D (a
+//     tile pixel also out and the tie share of the bias term), kept in
+//     shared memory; the halo's are recomputed here instead of being read
+//     from another block;
+//   - each tile pixel q gathers dflow(q) over its k*k neighbours p = q - off_j
+//     from the staged c, m and raw_j(p) (e_j recomputed), and writes it;
+//   - each parameter-gradient entry (tap j for both components, and the
+//     biases) has (threads) / (k*k + 1) owners, owner s summing tile rows s,
+//     s + SEGS, ...; the segments are added in order and the tile's partial
+//     is written to its row of `part`;
+//   - each tile pixel computes draw in place of its raw taps (e_j recomputed
+//     again: no e_j is stored, which keeps the staging at 113 KB at k = 7,
+//     two blocks an SM), and the block writes the tile's rows out as
+//     contiguous spans, by 16-byte stores where the map's and the gradient's
+//     alignment agree.
+// * rf_bwd_reduce (only when a parameter gradient is needed): a warp per
+//   entry sums it over the tiles' partials, lane l the tiles l, l + 32, ...
+//   in order, then the lanes by a fixed butterfly; dwx, dbx, dwy and dby do
+//   not change from run to run.
 
 #include <algorithm>
 #include <type_traits>
@@ -67,28 +73,42 @@
 
 namespace dfvo {
 
-constexpr int kRbRows = 8;     // tile rows
-constexpr int kRbCols = 32;    // tile columns, one lane each
-constexpr int kRbThreads = kRbRows * kRbCols;
-constexpr int kRbMaxBlocks = 264;  // two per SM of an H100
-constexpr int kRgThreads = 256;
-
 template <int K>
 struct RbTile {
   static constexpr int KK = K * K;
   static constexpr int P = (K - 1) / 2;
-  static constexpr int HH = kRbRows + 2 * P;  // flow halo rows
-  static constexpr int HW = kRbCols + 2 * P;  // flow halo columns
+  static constexpr int TH = K == 7 ? 16 : 8;  // tile rows
+  static constexpr int TW = 16;               // tile columns
+  static constexpr int NT = TH * TW;          // threads: one per tile pixel
+  static constexpr int NW = NT / 32;          // warps
+  static constexpr int SR = TH + 2 * P;  // staged raw rows: the tile and its halo
+  static constexpr int SC = TW + 2 * P;  // staged raw columns
+  static constexpr int NS = SR * SC;     // staged pixels
+  static constexpr int ROUNDS = (NS + NT - 1) / NT;  // staged pixels per thread
+  static constexpr int FR = TH + 4 * P;  // staged flow: every staged pixel's taps
+  static constexpr int FC = TW + 4 * P;
   // parameter-gradient entries: dwx[KK], dwy[KK], dbx, dby
   static constexpr int NV = 2 * KK + 2;
-  // owners per entry (each a strided segment of the tile's pixels)
-  static constexpr int SEGS = kRbThreads / NV > 0 ? kRbThreads / NV : 1;
-  // shared floats: flow halo (x, y), raw (then draw) and e per pixel and
-  // tap, c_x and c_y per pixel, the weights and biases (as the entries),
-  // the segments' sums; at k = 7 105 KB, two blocks an SM
-  static constexpr int FLOW = HH * HW * 2;
-  static constexpr int E = kRbThreads * KK;
-  static constexpr int SMEM_FLOATS = FLOW + 2 * E + 2 * kRbThreads + NV + SEGS * NV;
+  // owners: tap j (both components) and the biases, each a segment of pixels
+  static constexpr int OWN = KK + 1;
+  static constexpr int SEGS = NT / OWN;  // owner s: tile rows s, s + SEGS, ...
+  // floats of a staged raw row (a multiple of 4), plus up to 3 to make the
+  // row pitch agree with the map's modulo 16 bytes
+  static constexpr int RPF = (SC * KK + 3) / 4 * 4;
+  // float offsets in shared memory: raw (with the alignment shift), flow
+  // (x, y per pixel), c_x, c_y and m per staged pixel, out_x, out_y and the
+  // tie share per tile pixel, the weights as (wx_j, wy_j) pairs and the
+  // biases, the segments' sums; at k = 7 113 KB, two blocks an SM
+  static constexpr int FLOW = (SR * (RPF + 3) + 5) / 2 * 2;  // 8-byte aligned pairs
+  static constexpr int CX = FLOW + FR * FC * 2;
+  static constexpr int CY = CX + NS;
+  static constexpr int MM = CY + NS;
+  static constexpr int OX = MM + NS;
+  static constexpr int OY = OX + NT;
+  static constexpr int TB = OY + NT;
+  static constexpr int WS = (TB + NT + 1) / 2 * 2;  // 8-byte aligned pairs
+  static constexpr int SEG = WS + NV;
+  static constexpr int SMEM_FLOATS = SEG + SEGS * NV;
 };
 
 __device__ __forceinline__ float rb_param(const void* p, int i, int dtype) {
@@ -103,9 +123,9 @@ __device__ __forceinline__ void rb_store(void* p, int i, float v, int dtype) {
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
 }
 
-// e_j of a tap, rounded as the forward rounds it
+// e_j of a tap: s_j and m - s_j rounded as the forward rounds them
 __device__ __forceinline__ float rb_exp(float m, float r) {
-  return expf(__fsub_rn(m, __fmul_rn(r, r)));
+  return __expf(__fsub_rn(m, __fmul_rn(r, r)));
 }
 
 struct RbArgs {
@@ -114,239 +134,326 @@ struct RbArgs {
   const void* g;
   long long sgn, sgh, sgw, sgc;  // the cotangent's element strides
   void* draw;    // [N,H,W,k*k], or null
-  float4* coef;  // (c_x, c_y, m, 0) per pixel, or null when dflow is not needed
-  float* part;   // [gridDim.x of rf_bwd_pixels][NV], or null
-  void *dflow, *dwx, *dbx, *dwy, *dby;  // or null
+  void* dflow;   // [N,H,W,2], or null
+  float* part;   // [tiles][NV], or null
+  void *dwx, *dbx, *dwy, *dby;  // or null
   int n, h, w;
 };
 
+template <int K>
 __host__ __device__ inline long long rb_tiles(int n, int h, int w) {
-  return static_cast<long long>(n) * ((h + kRbRows - 1) / kRbRows) *
-         ((w + kRbCols - 1) / kRbCols);
+  using L = RbTile<K>;
+  return static_cast<long long>(n) * ((h + L::TH - 1) / L::TH) * ((w + L::TW - 1) / L::TW);
 }
 
-inline int rb_blocks(int n, int h, int w) {
-  return static_cast<int>(std::min<long long>(rb_tiles(n, h, w), kRbMaxBlocks));
-}
+__device__ __forceinline__ int mod4(long long v) { return static_cast<int>(((v % 4) + 4) % 4); }
 
 template <typename T, int K>
-__global__ void __launch_bounds__(kRbThreads) rf_bwd_pixels(RbArgs a) {
+__global__ void __launch_bounds__(RbTile<K>::NT) rf_bwd_tile(RbArgs a) {
   using L = RbTile<K>;
-  constexpr int KK = L::KK, HW = L::HW, NV = L::NV, SEGS = L::SEGS;
+  constexpr int KK = L::KK, P = L::P, TH = L::TH, TW = L::TW, NT = L::NT, SR = L::SR,
+                SC = L::SC, FC = L::FC, NV = L::NV, OWN = L::OWN, SEGS = L::SEGS,
+                ROUNDS = L::ROUNDS;
+  constexpr bool F32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) float rb_smem[];
-  float* fh = rb_smem;         // flow halo, (x, y) per halo pixel
-  float* rs = fh + L::FLOW;    // rs[pixel * KK + j]: raw, then draw
-  float* es = rs + L::E;       // es[pixel * KK + j]
-  float* cx = es + L::E;       // c_x, c_y per tile pixel (0 outside the image)
-  float* cy = cx + kRbThreads;
-  float* ws = cy + kRbThreads;  // wx[KK], wy[KK], bx, by
-  float* seg = ws + NV;         // seg[segment * NV + entry]
+  float* fs = rb_smem + L::FLOW;
+  float* cxs = rb_smem + L::CX;
+  float* cys = rb_smem + L::CY;
+  float* ms = rb_smem + L::MM;
+  float* oxs = rb_smem + L::OX;
+  float* oys = rb_smem + L::OY;
+  float* tbs = rb_smem + L::TB;
+  float* ws = rb_smem + L::WS;  // (wx_j, wy_j) at 2j, then bx, by
+  float* seg = rb_smem + L::SEG;
   const T* raw = static_cast<const T*>(a.raw);
   const T* flow = static_cast<const T*>(a.flow);
-  const T* g = static_cast<const T*>(a.g);
-  T* draw = static_cast<T*>(a.draw);
   const int tid = threadIdx.x;
-  const int py = tid / kRbCols, px = tid % kRbCols;
+  const int lane = tid & 31;
+  const int h = a.h, w = a.w;
+  const int tiles_x = (w + TW - 1) / TW;
+  const int tiles_y = (h + TH - 1) / TH;
+  const long long tile = blockIdx.x;
+  const int x0 = static_cast<int>(tile % tiles_x) * TW;
+  const int y0 = static_cast<int>((tile / tiles_x) % tiles_y) * TH;
+  const long long b = tile / (static_cast<long long>(tiles_x) * tiles_y);
+  const long long bh = b * h;  // pixel (b, yy, xx) is (bh + yy) * w + xx
 
-  for (int i = tid; i < NV; i += kRbThreads)
-    ws[i] = i < KK       ? rb_param(a.wx, i, a.wdtype)
-            : i < 2 * KK ? rb_param(a.wy, i - KK, a.wdtype)
-            : i == 2 * KK ? rb_param(a.bx, 0, a.wdtype)
-                          : rb_param(a.by, 0, a.wdtype);
-  float total = 0.f;  // thread tid < NV: the block's running sum of entry tid
+  // Staged raw pixel (r, col) <-> pixel (y0 - P + r, x0 - P + col), tap j at
+  // rs[r * rpf + col * KK + j]. In float32 the shift and the row pitch make
+  // every staged float agree with its device address modulo 16 bytes.
+  const long long base = ((bh + y0 - P) * w + x0 - P) * KK;
+  const int shift =
+      F32 ? mod4(static_cast<long long>(reinterpret_cast<uintptr_t>(raw) / 4) + base) : 0;
+  const int rpf = F32 ? L::RPF + mod4(static_cast<long long>(w) * KK - L::RPF) : L::RPF;
+  float* rs = rb_smem + shift;
 
-  const int tiles_x = (a.w + kRbCols - 1) / kRbCols;
-  const int tiles_y = (a.h + kRbRows - 1) / kRbRows;
-  const long long ntiles = rb_tiles(a.n, a.h, a.w);
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int x0 = static_cast<int>(tile % tiles_x) * kRbCols;
-    const int y0 = static_cast<int>((tile / tiles_x) % tiles_y) * kRbRows;
-    const int b = static_cast<int>(tile / (static_cast<long long>(tiles_x) * tiles_y));
-    const int y = y0 + py, x = x0 + px;
-    const bool mine = y < a.h && x < a.w;
-    __syncthreads();  // the previous tile's reads of the shared arrays are done
-    // The tile's flow with its halo (fh pixel (j, i) <-> pixel (y0 - P + j,
-    // x0 - P + i)) and raw taps (each tile row's taps are one contiguous span
-    // in memory, read with consecutive threads on consecutive elements). In
-    // float32 every element is one 4-byte cp.async, all in flight at once and
-    // holding no registers; bf16 elements are loaded a batch at a time.
-    for (int i = tid; i < L::HH * HW; i += kRbThreads) {
-      const int yy = y0 - L::P + i / HW, xx = x0 - L::P + i % HW;
-      const bool in = yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
-      const T* f = in ? flow + ((static_cast<long long>(b) * a.h + yy) * a.w + xx) * 2 : flow;
-      if constexpr (std::is_same<T, float>::value) {
-        cp_async_small<4>(fh + 2 * i, f, in);
-        cp_async_small<4>(fh + 2 * i + 1, f + 1, in);
-      } else {
-        fh[2 * i] = in ? to_f32(f[0]) : 0.f;
-        fh[2 * i + 1] = in ? to_f32(f[1]) : 0.f;
-      }
-    }
-#pragma unroll (K)
-    for (int i = tid; i < L::E; i += kRbThreads) {
-      const int row = i / (kRbCols * KK), col = (i / KK) % kRbCols;
-      const bool in = y0 + row < a.h && x0 + col < a.w;
-      const T* r = in ? raw + ((static_cast<long long>(b) * a.h + y0 + row) * a.w + x0) * KK +
-                            (i - row * kRbCols * KK)
-                      : raw;
-      if constexpr (std::is_same<T, float>::value)
-        cp_async_small<4>(rs + i, r, in);
-      else
-        rs[i] = in ? to_f32(*r) : 0.f;
-    }
-    cp_async_commit();
-    // the thread's cotangent, while the copies fly
-    const T* gp = g + b * a.sgn + (mine ? y : 0) * a.sgh + (mine ? x : 0) * a.sgw;
-    const float gx = to_f32(gp[0]), gy = to_f32(gp[a.sgc]);
-    cp_async_wait_all();
-    __syncthreads();
-
-    float* rp = rs + tid * KK;  // lanes KK (odd) floats apart: no bank conflicts
-    float* ep = es + tid * KK;
-    float c_x = 0.f, c_y = 0.f;
-    if (mine) {
-      float mn = fabsf(rp[0]);
-      for (int j = 1; j < KK; ++j) mn = fminf(mn, fabsf(rp[j]));
-      const float m = __fmul_rn(mn, mn);  // min_j of the rounded raw_j^2
-      const float* f0 = fh + 2 * (py * HW + px);  // the halo pixel of tap (0, 0)
-      float den = 0.f, ax = 0.f, ay = 0.f;
-      int ties = 0;
-#pragma unroll (K)
-      for (int j = 0; j < KK; ++j) {
-        const float r = rp[j];
-        const float e = rb_exp(m, r);
-        const float* f = f0 + 2 * ((j / K) * HW + j % K);
-        ep[j] = e;
-        den += e;
-        ties += __fmul_rn(r, r) == m;
-        ax = fmaf(e, ws[j] * f[0], ax);
-        ay = fmaf(e, ws[KK + j] * f[1], ay);
-      }
-      const float inv = 1.f / den;  // den >= 1: the minimal tap gives exp(0)
-      c_x = gx * inv;
-      c_y = gy * inv;
-      if (draw != nullptr) {
-        // draw in place of the pixel's raw taps
-        const float ox = (ws[2 * KK] + ax) * inv, oy = (ws[2 * KK + 1] + ay) * inv;
-        const float tb = (c_x * ws[2 * KK] + c_y * ws[2 * KK + 1]) / static_cast<float>(ties);
-#pragma unroll (K)
-        for (int j = 0; j < KK; ++j) {
-          const float r = rp[j];
-          const float* f = f0 + 2 * ((j / K) * HW + j % K);
-          const float ge = c_x * (ws[j] * f[0] - ox) + c_y * (ws[KK + j] * f[1] - oy);
-          const float dt = ep[j] * ge + (__fmul_rn(r, r) == m ? tb : 0.f);
-          rp[j] = -2.f * r * dt;
-        }
-      }
-      if (a.coef != nullptr)
-        a.coef[(static_cast<long long>(b) * a.h + y) * a.w + x] = make_float4(c_x, c_y, m, 0.f);
-    } else {
-      for (int j = 0; j < KK; ++j) ep[j] = 0.f;
-    }
-    cx[tid] = c_x;
-    cy[tid] = c_y;
-    if (draw != nullptr) {
-      __syncthreads();
-#pragma unroll (K)
-      for (int i = tid; i < L::E; i += kRbThreads) {
-        const int row = i / (kRbCols * KK), col = (i / KK) % kRbCols;
-        if (y0 + row < a.h && x0 + col < a.w)
-          draw[((static_cast<long long>(b) * a.h + y0 + row) * a.w + x0) * KK +
-               (i - row * kRbCols * KK)] = from_f32<T>(rs[i]);
-      }
-    }
-
-    if (a.part != nullptr) {
-      __syncthreads();
-      if (tid < SEGS * NV) {
-        // entry i over the pixels s, s + SEGS, ... of the tile
-        const int i = tid % NV, s0 = tid / NV;
-        float s = 0.f;
-        if (i < 2 * KK) {
-          const int comp = i >= KK, j = i - comp * KK;
-          const float* c = comp ? cy : cx;
-          const int off = 2 * ((j / K) * HW + j % K) + comp;
-#pragma unroll 8
-          for (int q = s0; q < kRbThreads; q += SEGS)
-            s = fmaf(c[q] * es[q * KK + j], fh[2 * ((q / kRbCols) * HW + q % kRbCols) + off], s);
+  // the raw rows, warp v taking rows v, v + NW, ...: columns [lo, hi) lie in
+  // the image (zero elsewhere)
+  const int lo = max(0, P - x0), hi = min(SC, w - x0 + P);
+  for (int r = tid >> 5; r < SR; r += L::NW) {
+    const int yy = y0 - P + r;
+    const bool row_in = yy >= 0 && yy < h;
+    const int l = row_in ? lo : SC, u = row_in ? hi : SC;
+    float* srow = rs + r * rpf;
+    const int zl = l * KK, zr = (SC - u) * KK;
+    for (int i = lane; i < zl + zr; i += 32) srow[i < zl ? i : u * KK + (i - zl)] = 0.f;
+    if (u <= l) continue;
+    const T* src = raw + ((bh + yy) * w + x0 - P + l) * KK;
+    float* dst = srow + l * KK;
+    const int cnt = (u - l) * KK;
+    if constexpr (F32) {
+      const int h0 =
+          min(cnt, (4 - static_cast<int>((reinterpret_cast<uintptr_t>(src) / 4) % 4)) % 4);
+      const int nb = (cnt - h0) / 4;
+      for (int i = lane; i < cnt - 3 * nb; i += 32) {  // head, body vectors, tail
+        if (i >= h0 && i < h0 + nb) {
+          const int o = h0 + 4 * (i - h0);
+          cp_async16(dst + o, src + o, true);
         } else {
-          const float* c = i == 2 * KK ? cx : cy;
-          for (int q = s0; q < kRbThreads; q += SEGS) s += c[q];
+          const int o = i < h0 ? i : i + 3 * nb;
+          cp_async_small<4>(dst + o, src + o, true);
         }
-        seg[s0 * NV + i] = s;
       }
-      __syncthreads();
-      if (tid < NV)
-#pragma unroll
-        for (int s0 = 0; s0 < SEGS; ++s0) total += seg[s0 * NV + tid];
+    } else {
+      for (int i = lane; i < cnt; i += 32) dst[i] = to_f32(src[i]);
     }
   }
-  if (a.part != nullptr && tid < NV) a.part[static_cast<long long>(blockIdx.x) * NV + tid] = total;
+  // the flow, staged pixel (r, col) <-> pixel (y0 - 2P + r, x0 - 2P + col)
+  for (int i = tid; i < L::FR * FC; i += NT) {
+    const int yy = y0 - 2 * P + i / FC, xx = x0 - 2 * P + i % FC;
+    const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+    const T* f = in ? flow + ((bh + yy) * w + xx) * 2 : flow;
+    if constexpr (F32) {
+      cp_async_small<4>(fs + 2 * i, f, in);
+      cp_async_small<4>(fs + 2 * i + 1, f + 1, in);
+    } else {
+      fs[2 * i] = in ? to_f32(f[0]) : 0.f;
+      fs[2 * i + 1] = in ? to_f32(f[1]) : 0.f;
+    }
+  }
+  cp_async_commit();
+  // while the copies fly: the weights, and the cotangent of this thread's
+  // staged pixels (0 outside the image)
+  for (int i = tid; i < NV; i += NT)
+    ws[i] = i < 2 * KK ? rb_param(i % 2 ? a.wy : a.wx, i / 2, a.wdtype)
+                       : rb_param(i == 2 * KK ? a.bx : a.by, 0, a.wdtype);
+  const T* g = static_cast<const T*>(a.g);
+  float gx[ROUNDS], gy[ROUNDS];
+#pragma unroll
+  for (int k = 0; k < ROUNDS; ++k) {
+    const int i = tid + k * NT;
+    const int yy = y0 - P + i / SC, xx = x0 - P + i % SC;
+    const bool in = i < L::NS && yy >= 0 && yy < h && xx >= 0 && xx < w;
+    const T* gp = g + (in ? b * a.sgn + yy * a.sgh + xx * a.sgw : 0);
+    gx[k] = in ? to_f32(gp[0]) : 0.f;
+    gy[k] = in ? to_f32(gp[a.sgc]) : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // every staged pixel: m, D, c; a tile pixel also out and the tie share
+#pragma unroll
+  for (int k = 0; k < ROUNDS; ++k) {
+    const int i = tid + k * NT;
+    if (i >= L::NS) break;
+    const int r = i / SC, col = i - r * SC;
+    const int yy = y0 - P + r, xx = x0 - P + col;
+    float c_x = 0.f, c_y = 0.f, m = 0.f;
+    if (yy >= 0 && yy < h && xx >= 0 && xx < w) {
+      const float* rp = rs + r * rpf + col * KK;  // lanes KK (odd) floats apart
+      float mn = fabsf(rp[0]);
+#pragma unroll
+      for (int j = 1; j < KK; ++j) mn = fminf(mn, fabsf(rp[j]));
+      m = __fmul_rn(mn, mn);  // min_j of the rounded raw_j^2
+      const int ty = r - P, tx = col - P;
+      float den = 0.f;
+      if (ty >= 0 && ty < TH && tx >= 0 && tx < TW) {
+        const float* f0 = fs + 2 * (r * FC + col);  // the flow of tap (0, 0)
+        float ax = 0.f, ay = 0.f;
+        int ties = 0;
+#pragma unroll
+        for (int j = 0; j < KK; ++j) {
+          const float rj = rp[j];
+          const float e = rb_exp(m, rj);
+          const float2 f = *reinterpret_cast<const float2*>(f0 + 2 * ((j / K) * FC + j % K));
+          const float2 wj = *reinterpret_cast<const float2*>(ws + 2 * j);
+          den += e;
+          ties += __fmul_rn(rj, rj) == m;
+          ax = fmaf(e, wj.x * f.x, ax);
+          ay = fmaf(e, wj.y * f.y, ay);
+        }
+        const float inv = 1.f / den;  // den >= 1: the minimal tap gives exp(0)
+        c_x = gx[k] * inv;
+        c_y = gy[k] * inv;
+        const int t = ty * TW + tx;
+        oxs[t] = (ws[2 * KK] + ax) * inv;
+        oys[t] = (ws[2 * KK + 1] + ay) * inv;
+        tbs[t] = (c_x * ws[2 * KK] + c_y * ws[2 * KK + 1]) / static_cast<float>(ties);
+      } else {
+#pragma unroll
+        for (int j = 0; j < KK; ++j) den += rb_exp(m, rp[j]);
+        c_x = gx[k] / den;
+        c_y = gy[k] / den;
+      }
+    }
+    cxs[i] = c_x;  // 0 outside the image: such a p adds nothing below
+    cys[i] = c_y;
+    ms[i] = m;
+  }
+  __syncthreads();
+
+  const int qy = tid / TW, qx = tid % TW;
+  const int y = y0 + qy, x = x0 + qx;
+  const bool mine = y < h && x < w;
+  if (a.dflow != nullptr) {
+    // dflow(q) = sum_j w_j (c e_j)(q - off_j): staged p = (qy + 2P - j / K,
+    // qx + 2P - j % K); outside the image c = 0 and the raw taps are 0
+    const float* rq = rs + (qy + 2 * P) * rpf + (qx + 2 * P) * KK;
+    const int iq = (qy + 2 * P) * SC + qx + 2 * P;
+    float dfx = 0.f, dfy = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy) {
+      const float* rrow = rq - dy * rpf;
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx) {
+        const int j = dy * K + dx;
+        const int pi = iq - dy * SC - dx;
+        const float e = rb_exp(ms[pi], rrow[j - dx * KK]);
+        const float2 wj = *reinterpret_cast<const float2*>(ws + 2 * j);
+        dfx = fmaf(wj.x, cxs[pi] * e, dfx);
+        dfy = fmaf(wj.y, cys[pi] * e, dfy);
+      }
+    }
+    if (mine) {
+      T* o = static_cast<T*>(a.dflow) + ((bh + y) * w + x) * 2;
+      o[0] = from_f32<T>(dfx);
+      o[1] = from_f32<T>(dfy);
+    }
+  }
+  if (a.part != nullptr && tid < SEGS * OWN) {
+    // entry o over the tile rows s, s + SEGS, ...: dw_j = sum c e_j f_j,
+    // db = sum c (pixels outside the image have c = 0)
+    const int o = tid % OWN, s0 = tid / OWN;
+    float sx = 0.f, sy = 0.f;
+    if (o < KK) {
+      const int fo = 2 * ((o / K) * FC + o % K);
+      for (int ty = s0; ty < TH; ty += SEGS) {
+        const float* rrow = rs + (ty + P) * rpf + P * KK + o;
+        const int irow = (ty + P) * SC + P;
+        const float* frow = fs + 2 * ((ty + P) * FC + P) + fo;
+#pragma unroll
+        for (int tx = 0; tx < TW; ++tx) {
+          const float e = rb_exp(ms[irow + tx], rrow[tx * KK]);
+          const float2 f = *reinterpret_cast<const float2*>(frow + 2 * tx);
+          sx = fmaf(cxs[irow + tx] * e, f.x, sx);
+          sy = fmaf(cys[irow + tx] * e, f.y, sy);
+        }
+      }
+    } else {
+      for (int ty = s0; ty < TH; ty += SEGS) {
+        const int irow = (ty + P) * SC + P;
+#pragma unroll
+        for (int tx = 0; tx < TW; ++tx) {
+          sx += cxs[irow + tx];
+          sy += cys[irow + tx];
+        }
+      }
+    }
+    seg[s0 * NV + (o < KK ? o : 2 * KK)] = sx;
+    seg[s0 * NV + (o < KK ? KK + o : 2 * KK + 1)] = sy;
+  }
+  __syncthreads();  // the gathers' and the owners' reads of raw are done
+  if (a.part != nullptr) {
+    for (int i = tid; i < NV; i += NT) {
+      float total = 0.f;
+#pragma unroll
+      for (int s0 = 0; s0 < SEGS; ++s0) total += seg[s0 * NV + i];
+      a.part[tile * NV + i] = total;
+    }
+  }
+  if (a.draw == nullptr) return;
+  if (mine) {
+    // draw in place of the pixel's raw taps
+    const int pr = qy + P, pc = qx + P;
+    const int pi = pr * SC + pc;
+    float* rp = rs + pr * rpf + pc * KK;
+    const float m = ms[pi], c_x = cxs[pi], c_y = cys[pi];
+    const float ox = oxs[tid], oy = oys[tid], tb = tbs[tid];
+    const float* f0 = fs + 2 * (pr * FC + pc);
+#pragma unroll
+    for (int j = 0; j < KK; ++j) {
+      const float r = rp[j];
+      const float sj = __fmul_rn(r, r);
+      const float e = __expf(__fsub_rn(m, sj));
+      const float2 f = *reinterpret_cast<const float2*>(f0 + 2 * ((j / K) * FC + j % K));
+      const float2 wj = *reinterpret_cast<const float2*>(ws + 2 * j);
+      const float ge = c_x * (wj.x * f.x - ox) + c_y * (wj.y * f.y - oy);
+      const float dt = e * ge + (sj == m ? tb : 0.f);
+      rp[j] = -2.f * r * dt;
+    }
+  }
+  __syncthreads();
+  // the tile's rows of draw, each one contiguous span
+  T* draw = static_cast<T*>(a.draw);
+  const int nx = min(TW, w - x0);
+  const bool vec = F32 && (reinterpret_cast<uintptr_t>(a.draw) & 15) ==
+                              (reinterpret_cast<uintptr_t>(a.raw) & 15);
+  for (int ty = 0; ty < TH && y0 + ty < h; ++ty) {
+    const float* src = rs + (ty + P) * rpf + P * KK;
+    T* dst = draw + ((bh + y0 + ty) * w + x0) * KK;
+    const int cnt = nx * KK;
+    if (vec) {
+      // src and dst agree modulo 16 bytes (the staging shift)
+      const int h0 =
+          min(cnt, (4 - static_cast<int>((reinterpret_cast<uintptr_t>(dst) / 4) % 4)) % 4);
+      const int nb = (cnt - h0) / 4;
+      for (int i = tid; i < cnt - 3 * nb; i += NT) {
+        if (i >= h0 && i < h0 + nb) {
+          const int o = h0 + 4 * (i - h0);
+          *reinterpret_cast<float4*>(reinterpret_cast<float*>(dst) + o) =
+              *reinterpret_cast<const float4*>(src + o);
+        } else {
+          const int o = i < h0 ? i : i + 3 * nb;
+          dst[o] = from_f32<T>(src[o]);
+        }
+      }
+    } else {
+      for (int i = tid; i < cnt; i += NT) dst[i] = from_f32<T>(src[i]);
+    }
+  }
 }
 
-// Blocks 0 .. gridDim.x - 2 (all of them when no partials are summed): the
-// flow gradient, one thread per pixel. The last block, when a.part is set:
-// the parameter gradients from the nparts partials.
-template <typename T, int K>
-__global__ void __launch_bounds__(kRgThreads) rf_bwd_gather(RbArgs a, int nparts) {
-  using L = RbTile<K>;
-  constexpr int KK = L::KK, NV = L::NV;
-  if (a.part != nullptr && blockIdx.x == gridDim.x - 1) {
-    for (int i = threadIdx.x; i < NV; i += kRgThreads) {
-      float s = 0.f;
-      for (int p = 0; p < nparts; ++p) s += a.part[static_cast<long long>(p) * NV + i];
-      void* o = i < KK ? a.dwx : i < 2 * KK ? a.dwy : i == 2 * KK ? a.dbx : a.dby;
-      if (o != nullptr) rb_store(o, i < 2 * KK ? i % KK : 0, s, a.wdtype);
-    }
-    return;
-  }
-  __shared__ float ws[2 * KK];
-  for (int i = threadIdx.x; i < 2 * KK; i += kRgThreads)
-    ws[i] = i < KK ? rb_param(a.wx, i, a.wdtype) : rb_param(a.wy, i - KK, a.wdtype);
-  __syncthreads();
-  const long long q = static_cast<long long>(blockIdx.x) * kRgThreads + threadIdx.x;
-  if (q >= static_cast<long long>(a.n) * a.h * a.w) return;
-  const int x = static_cast<int>(q % a.w);
-  const int y = static_cast<int>((q / a.w) % a.h);
-  const long long img = q - (static_cast<long long>(y) * a.w + x);  // pixel (b, 0, 0)
-  const T* raw = static_cast<const T*>(a.raw);
-  float dx = 0.f, dy = 0.f;
-  // p = q - off_j reads q through its tap j. Every load goes out (at a
-  // clamped address where p lies outside the image, its term then dropped),
-  // so that none waits on a branch.
+// The parameter gradients from the tiles' partials: block i (one warp)
+// sums entry i, lane l over the tiles l, l + 32, ... in order, then the
+// lanes by a fixed butterfly.
+template <int K>
+__global__ void __launch_bounds__(32) rf_bwd_reduce(RbArgs a, int nparts) {
+  constexpr int KK = K * K, NV = RbTile<K>::NV;
+  const int i = blockIdx.x, lane = threadIdx.x;
+  float s = 0.f;
+#pragma unroll 8
+  for (int p = lane; p < nparts; p += 32) s += a.part[static_cast<long long>(p) * NV + i];
 #pragma unroll
-  for (int j = 0; j < KK; ++j) {
-    const int yy = y - (j / K - L::P), xx = x - (j % K - L::P);
-    const bool in = yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
-    const long long p = img + static_cast<long long>(min(max(yy, 0), a.h - 1)) * a.w +
-                        min(max(xx, 0), a.w - 1);
-    const float4 c = a.coef[p];
-    const float r = to_f32(raw[p * KK + j]);
-    const float e = in ? rb_exp(c.z, r) : 0.f;
-    dx = fmaf(ws[j], c.x * e, dx);
-    dy = fmaf(ws[KK + j], c.y * e, dy);
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) {
+    void* out = i < KK ? a.dwx : i < 2 * KK ? a.dwy : i == 2 * KK ? a.dbx : a.dby;
+    if (out != nullptr) rb_store(out, i < 2 * KK ? i % KK : 0, s, a.wdtype);
   }
-  T* o = static_cast<T*>(a.dflow) + q * 2;
-  o[0] = from_f32<T>(dx);
-  o[1] = from_f32<T>(dy);
 }
 
 template <typename T, int K>
 static int launch_rf_bwd(const RbArgs& a, cudaStream_t stream) {
   using L = RbTile<K>;
   const size_t smem = sizeof(float) * L::SMEM_FLOATS;
-  auto pixels = rf_bwd_pixels<T, K>;
-  cudaError_t err = allow_smem(pixels, smem);
+  auto kernel = rf_bwd_tile<T, K>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = rb_blocks(a.n, a.h, a.w);
-  pixels<<<blocks, kRbThreads, smem, stream>>>(a);
+  const long long tiles = rb_tiles<K>(a.n, a.h, a.w);
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(tiles), L::NT, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const long long npix = static_cast<long long>(a.n) * a.h * a.w;
-  const long long gather =
-      (a.dflow != nullptr ? (npix + kRgThreads - 1) / kRgThreads : 0) + (a.part != nullptr);
-  if (gather == 0) return 0;
-  if (gather > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rf_bwd_gather<T, K><<<static_cast<unsigned>(gather), kRgThreads, 0, stream>>>(a, blocks);
+  if (a.part == nullptr) return 0;
+  rf_bwd_reduce<K><<<L::NV, 32, 0, stream>>>(a, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,36 +466,37 @@ static int launch_rf_bwd_k(const RbArgs& a, int k, cudaStream_t s) {
 
 }  // namespace dfvo
 
-// Number of parameter-gradient partials (blocks of the first pass) for an
-// n x h x w map: the rows of the workspace `part` of dfvo_reg_dist_filter_bwd.
-extern "C" int dfvo_reg_dist_filter_bwd_parts(int n, int h, int w) {
-  return dfvo::rb_blocks(n, h, w);
+// Number of parameter-gradient partials (tiles of the pass) for an n x h x w
+// map and a k x k filter: the rows of the workspace `part` of
+// dfvo_reg_dist_filter_bwd.
+extern "C" int dfvo_reg_dist_filter_bwd_parts(int n, int h, int w, int k) {
+  using namespace dfvo;
+  const long long tiles = k == 3 ? rb_tiles<3>(n, h, w) : k == 5 ? rb_tiles<5>(n, h, w)
+                                                                  : rb_tiles<7>(n, h, w);
+  return static_cast<int>(tiles);
 }
 
 // raw [N,H,W,k*k] and flow [N,H,W,2] contiguous, of dtype `dtype`; wx, wy
 // (k*k values), bx, by (one each) contiguous, of dtype `wdtype`; g [N,H,W,2]
 // of dtype `dtype` at element strides sgn, sgh, sgw, sgc. Outputs, each null
 // when not needed, dense in their input's dtype: draw [N,H,W,k*k], dflow
-// [N,H,W,2], dwx, dwy (k*k values), dbx, dby (one). coef: f32 workspace of
-// N*H*W float4 (16-byte aligned), set exactly when dflow is; part: f32
-// workspace of dfvo_reg_dist_filter_bwd_parts rows of 2k*k + 2, set exactly
-// when a parameter gradient is needed.
+// [N,H,W,2], dwx, dwy (k*k values), dbx, dby (one). part: f32 workspace of
+// dfvo_reg_dist_filter_bwd_parts rows of 2k*k + 2, set exactly when a
+// parameter gradient is needed.
 extern "C" int dfvo_reg_dist_filter_bwd(const void* raw, const void* flow, const void* wx,
                                         const void* bx, const void* wy, const void* by,
                                         int wdtype, const void* g, long long sgn, long long sgh,
                                         long long sgw, long long sgc, void* draw, void* dflow,
-                                        void* coef, float* part, void* dwx, void* dbx,
-                                        void* dwy, void* dby, int n, int h, int w, int k,
-                                        int dtype, void* stream) {
+                                        float* part, void* dwx, void* dbx, void* dwy, void* dby,
+                                        int n, int h, int w, int k, int dtype, void* stream) {
   using namespace dfvo;
   const bool need_part = dwx != nullptr || dbx != nullptr || dwy != nullptr || dby != nullptr;
   if (n <= 0 || h <= 0 || w <= 0 || (k != 3 && k != 5 && k != 7) ||
-      (wdtype != kFloat32 && wdtype != kBFloat16) || (dflow != nullptr) != (coef != nullptr) ||
-      need_part != (part != nullptr) || reinterpret_cast<uintptr_t>(coef) % 16 != 0 ||
+      (wdtype != kFloat32 && wdtype != kBFloat16) || need_part != (part != nullptr) ||
       (draw == nullptr && dflow == nullptr && !need_part))
     return static_cast<int>(cudaErrorInvalidValue);
-  const RbArgs a{raw, flow, wx, bx, wy, by, wdtype, g, sgn, sgh, sgw, sgc, draw,
-                 static_cast<float4*>(coef), part, dflow, dwx, dbx, dwy, dby, n, h, w};
+  const RbArgs a{raw, flow, wx, bx, wy, by, wdtype, g, sgn, sgh, sgw, sgc, draw, dflow,
+                 part, dwx, dbx, dwy, dby, n, h, w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch_rf_bwd_k<float>(a, k, s);
   if (dtype == kBFloat16) return launch_rf_bwd_k<__nv_bfloat16>(a, k, s);

@@ -47,11 +47,11 @@ _SIGNATURES = {
     "dfvo_correlation_tc": (_P, _L, _L, _L, _P, _L, _L, _L, _P) + (_I,) * 5 + (_P,),
     # raw, flow, wx, bx, wy, by, wdtype, out, n, h, w, k, dtype, stream
     "dfvo_reg_dist_filter": (_P,) * 6 + (_I, _P) + (_I,) * 5 + (_P,),
-    # n, h, w -> rows of the parameter-gradient workspace
-    "dfvo_reg_dist_filter_bwd_parts": (_I,) * 3,
+    # n, h, w, k -> rows of the parameter-gradient workspace (one per tile)
+    "dfvo_reg_dist_filter_bwd_parts": (_I,) * 4,
     # raw, flow, wx, bx, wy, by, wdtype, g, sgn, sgh, sgw, sgc, draw, dflow,
-    # coef, part, dwx, dbx, dwy, dby, n, h, w, k, dtype, stream
-    "dfvo_reg_dist_filter_bwd": (_P,) * 6 + (_I, _P) + (_L,) * 4 + (_P,) * 8 + (_I,) * 5
+    # part, dwx, dbx, dwy, dby, n, h, w, k, dtype, stream
+    "dfvo_reg_dist_filter_bwd": (_P,) * 6 + (_I, _P) + (_L,) * 4 + (_P,) * 7 + (_I,) * 5
     + (_P,),
     # x, wts, bias, out, n, in_h, in_w, cin, out_h, out_w, k, cout, pad,
     # dtype, stream

@@ -11,7 +11,9 @@ views to them through their strides, without a copy.
 
 Two variants, chosen by :func:`correlation_variant` from dtype and layout:
 ``tensor_core`` (bf16, C a multiple of 16 up to 256, 16-byte aligned
-pixels: the main path) and ``cuda_core`` (float32 and everything else).
+pixels: the main path) and ``reg_tile`` (float32, and bf16 at C > 256,
+C not a multiple of 16 or unaligned pixels: register-tiled on the CUDA
+cores, a small map split over the channels by a thread block cluster).
 
 :func:`correlation_backward_cuda` launches the backward kernel
 (``csrc/correlation_bwd.cu``): both input gradients in one launch, by the
@@ -41,7 +43,7 @@ def pixel_strides(t, name="correlation"):
 
 
 def correlation_variant(f1, f2):
-    """'tensor_core' or 'cuda_core' for two stride-1 NHWC maps."""
+    """'tensor_core' or 'reg_tile' for two stride-1 NHWC maps."""
     c = f1.shape[3]
     aligned = all(
         t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in pixel_strides(t))
@@ -50,7 +52,7 @@ def correlation_variant(f1, f2):
     if (f1.dtype == torch.bfloat16 and c % 16 == 0 and c <= TC_MAX_CHANNELS
             and f1.shape[0] <= 65535 and aligned):
         return "tensor_core"
-    return "cuda_core"
+    return "reg_tile"
 
 
 def _check_args(name, f1, f2, max_disp, stride):
@@ -109,7 +111,7 @@ def correlation_cuda(f1, f2, max_disp=3, stride=1):
 
 
 correlation_cuda.launches = 0
-correlation_cuda.variant_launches = {"tensor_core": 0, "cuda_core": 0}
+correlation_cuda.variant_launches = {"tensor_core": 0, "reg_tile": 0}
 # by window: D = 3 (LiteFlowNet, 49 channels) and D = 4 (HD3, 81 channels)
 correlation_cuda.disp_launches = {3: 0, 4: 0}
 # by batch size N

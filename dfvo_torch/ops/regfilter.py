@@ -22,8 +22,9 @@ Regularization), and the two steps are one op:
   of the JAX package's normalisation differentiated by autodiff, then
   ``_rf_bwd``); the CPU backward and the oracle of the backward kernel.
 * ``reg_dist_filter_backward_cuda``: the kernels of ``csrc/regfilter_bwd.cu``,
-  a pass over the pixels and a gather of the flow gradient that also sums
-  the parameter gradients' per-block partials in a fixed order.
+  one pass over pixel tiles with their halo (every gradient, and a partial
+  of the parameter gradients per tile), then a fixed-order sum of the
+  partials.
 * ``reg_dist_filter``: plain on the CPU, the kernel on a CUDA device;
   through :class:`RegDistFilterFunction` when a gradient is recorded, whose
   backward launches ``reg_dist_filter_backward_cuda`` on a CUDA tensor and
@@ -212,10 +213,10 @@ def reg_dist_filter_backward_cuda(grad, raw, flow, wx, bx, wy, by, k, needs=(Tru
     hand a view; the kernels read it through its strides, with no copy) and
     the forward's inputs as :func:`reg_dist_filter_cuda` takes them, on one
     CUDA device; raises for anything else. Each gradient is written dense
-    in its input's shape and dtype. Two launches: the pass over the pixels,
-    then the gather of the flow gradient, whose last block sums the
-    parameter gradients' per-block partials in a fixed order (the second
-    launch is left out when neither is needed)."""
+    in its input's shape and dtype. Two launches: the pass over the pixel
+    tiles, then one block that sums the parameter gradients' per-tile
+    partials in a fixed order (left out when no parameter gradient is
+    needed)."""
     tensors = (grad, raw, flow, wx, bx, wy, by)
     cuda_lib.require_cuda("reg_dist_filter backward", *tensors)
     _check_args("reg_dist_filter backward", raw, flow, wx, bx, wy, by, k)
@@ -232,9 +233,7 @@ def reg_dist_filter_backward_cuda(grad, raw, flow, wx, bx, wy, by, k, needs=(Tru
         return tuple(g if g is None or i < 2 else g.zero_() for i, g in enumerate(grads))
     grad = grad.to(flow.dtype)
     lib = cuda_lib.load()
-    coef = (torch.empty((n, h, w, 4), dtype=torch.float32, device=raw.device)
-            if needs[1] else None)
-    part = (torch.empty((lib.dfvo_reg_dist_filter_bwd_parts(n, h, w), 2 * kk + 2),
+    part = (torch.empty((lib.dfvo_reg_dist_filter_bwd_parts(n, h, w, k), 2 * kk + 2),
                         dtype=torch.float32, device=raw.device) if need_part else None)
 
     def ptr(t):
@@ -243,7 +242,7 @@ def reg_dist_filter_backward_cuda(grad, raw, flow, wx, bx, wy, by, k, needs=(Tru
     rc = lib.dfvo_reg_dist_filter_bwd(
         raw.data_ptr(), flow.data_ptr(), wx.data_ptr(), bx.data_ptr(), wy.data_ptr(),
         by.data_ptr(), cuda_lib.dtype_code(wx.dtype), grad.data_ptr(), *grad.stride(),
-        *map(ptr, grads[:2]), ptr(coef), ptr(part), *map(ptr, grads[2:]), n, h, w, k,
+        *map(ptr, grads[:2]), ptr(part), *map(ptr, grads[2:]), n, h, w, k,
         cuda_lib.dtype_code(raw.dtype), cuda_lib.stream_of(raw),
     )
     cuda_lib.check(rc, "reg_dist_filter backward")

@@ -14,6 +14,12 @@ and the JAX package, on inputs made from numpy seeds.
   (dy, quad), and the warps' partial outputs summed in warp order.
 * ``csrc/correlation.cu`` (tensor_core): per tile row, 16-pixel m-tile and
   dy, a 16 x 24 banded GEMM of which the 2D+1 diagonals are kept.
+* ``csrc/correlation.cu`` (reg_tile, float32 and odd shapes): 8 x 16 output
+  tiles, f1 and the f2 tile with its D halo staged 16 channels at a time
+  with zero fill, a cluster of CS blocks splitting a tile's chunks (block r
+  the chunks r, r + CS, ...), per warp one dy and per thread a strip of 4
+  pixels summed from a register window of 4 + 2D staged f2 pixels, and the
+  blocks' partial tiles summed in rank order before the 1/C scale.
 
 The decompositions are written here in plain torch with the kernels' tile
 sizes, staging offsets and zero fill, so an index error in that arithmetic
@@ -44,6 +50,10 @@ HC_COLS = 64  # staged input columns per head-conv block (csrc/headconv.cu)
 # k <= 3, else 1
 RT_ROWS, RT_COLS, RT_SEG, RT_SPLIT = 8, 32, 8, 4
 CORR_COLS, CORR_F2_COLS = 32, 40  # correlation tile (csrc/correlation.cu)
+# the reg_tile cost volume (csrc/correlation.cu): tile rows and columns,
+# pixels per strip, float32 channels per staged chunk, the largest cluster
+# and the grid it aims to fill
+CR_ROWS, CR_COLS, CR_SEG, CR_CHUNK, CR_MAX_CLUSTER, CR_TARGET = 8, 16, 4, 16, 8, 132
 
 
 def _t(a):
@@ -99,8 +109,8 @@ def test_correlation_strides_address_the_subsampled_view():
     f2 = torch.zeros(f1.shape)
     bf = full.bfloat16()
     assert T_pcorr.correlation_variant(bf[:, ::2, ::2], f2.bfloat16()) == "tensor_core"
-    assert T_pcorr.correlation_variant(f1, f2) == "cuda_core"  # float32
-    assert T_pcorr.correlation_variant(bf[..., :24], bf[..., :24]) == "cuda_core"
+    assert T_pcorr.correlation_variant(f1, f2) == "reg_tile"  # float32
+    assert T_pcorr.correlation_variant(bf[..., :24], bf[..., :24]) == "reg_tile"
 
 
 def test_non_unit_channel_stride_is_refused():
@@ -284,3 +294,89 @@ def test_correlation_banded_matches_plain_and_xla(max_disp, stride):
     assert got.shape == plain.shape == want.shape
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _cluster_size(tiles, nchunks):
+    """csrc/correlation.cu cr_cluster: the smallest of 1, 2, 4, 8 blocks per
+    tile whose grid covers CR_TARGET, with a chunk for every block."""
+    cs = 1
+    while cs < CR_MAX_CLUSTER and 2 * cs <= nchunks and tiles * cs < CR_TARGET:
+        cs *= 2
+    return cs
+
+
+def _correlation_reg_tile(f1, f2, max_disp, stride):
+    """The reg_tile cost volume's arithmetic on the stride-reduced maps. Per
+    8 x 16 output tile, block r of the tile's cluster stages the chunks r,
+    r + CS, ... of 16 channels of f1 (8 x 16 pixels) and of f2 (8 + 2D rows
+    by 16 + 2D columns from (-D, -D)), zero outside the image and past C; per
+    dy (a warp) and strip of 4 pixels (a thread) it sums the strip's f1
+    pixels against the window of 4 + 2D f2 pixels of row y + dy, window[p +
+    dx] for output (p, dx). The blocks' partial tiles are summed in rank
+    order and scaled by 1/C. Returns the volume and the cluster sizes used."""
+    f1, f2 = f1[:, ::stride, ::stride], f2[:, ::stride, ::stride]
+    n, h, w, c = f1.shape
+    d, kdim = max_disp, 2 * max_disp + 1
+    nchunks = -(-c // CR_CHUNK)
+    cs = _cluster_size(n * -(-h // CR_ROWS) * -(-w // CR_COLS), nchunks)
+    cpad = nchunks * CR_CHUNK
+    # the zero fill: outside the image and past C
+    f1p = torch.zeros(n, h + CR_ROWS, w + CR_COLS, cpad)
+    f1p[:, :h, :w, :c] = f1
+    f2p = torch.zeros(n, h + CR_ROWS + 2 * d, w + CR_COLS + 2 * d, cpad)
+    f2p[:, d : d + h, d : d + w, :c] = f2
+    out = torch.zeros(n, h, w, kdim * kdim)
+    win = CR_SEG + 2 * d
+    for y0 in range(0, h, CR_ROWS):
+        for x0 in range(0, w, CR_COLS):
+            part = torch.zeros(cs, n, CR_ROWS, CR_COLS, kdim * kdim)
+            for rank in range(cs):
+                for j in range(rank, nchunks, cs):
+                    chans = slice(j * CR_CHUNK, (j + 1) * CR_CHUNK)
+                    a = f1p[:, y0 : y0 + CR_ROWS, x0 : x0 + CR_COLS, chans]
+                    b = f2p[:, y0 : y0 + CR_ROWS + 2 * d, x0 : x0 + CR_COLS + 2 * d, chans]
+                    for dy in range(kdim):
+                        for s0 in range(0, CR_COLS, CR_SEG):
+                            strip = a[:, :, s0 : s0 + CR_SEG]
+                            window = b[:, dy : dy + CR_ROWS, s0 : s0 + win]
+                            for dx in range(kdim):
+                                part[rank, :, :, s0 : s0 + CR_SEG, dy * kdim + dx] += (
+                                    strip * window[:, :, dx : dx + CR_SEG]).sum(-1)
+            tile = part[0]
+            for rank in range(1, cs):
+                tile = tile + part[rank]
+            th, tw = min(CR_ROWS, h - y0), min(CR_COLS, w - x0)
+            out[:, y0 : y0 + th, x0 : x0 + tw] = tile[:, :th, :tw] * (1.0 / c)
+    return out, cs
+
+
+# (max_disp, stride, n, h, w, c): D = 3 and 4, stride 1 and 2, ragged tiles
+# (h, w not multiples of 8 and 16), maps smaller than one tile, C below and
+# not a multiple of the 16-channel chunk (8, 40) and C over several chunks
+# split over 2 to 8 blocks (32, 130). The first six are held to XLA at
+# shapes that the JAX package's tests compile already
+# (test_correlation_banded_matches_plain_and_xla, test_torch_ops.py,
+# test_model_parity.py's row-banded cases), the others to the plain version.
+REG_TILE_CORR_XLA = [(3, 1, 2, 10, 36, 32), (4, 2, 2, 10, 36, 32), (3, 2, 2, 11, 13, 32),
+                     (4, 1, 2, 11, 13, 32), (3, 1, 1, 13, 24, 8), (4, 1, 1, 10, 24, 8)]
+REG_TILE_CORR_PLAIN = [(4, 1, 1, 9, 20, 40), (3, 1, 1, 3, 5, 130), (4, 2, 1, 1, 1, 24)]
+
+
+@pytest.mark.parametrize(
+    "max_disp,stride,n,h,w,c,xla",
+    [(*case, True) for case in REG_TILE_CORR_XLA]
+    + [(*case, False) for case in REG_TILE_CORR_PLAIN])
+def test_correlation_reg_tile_matches_plain_and_xla(max_disp, stride, n, h, w, c, xla):
+    rng = np.random.RandomState(400 + 10 * max_disp + stride + c)
+    f1 = rng.randn(n, h, w, c).astype(np.float32)
+    f2 = rng.randn(n, h, w, c).astype(np.float32)
+    got, cs = _correlation_reg_tile(_t(f1), _t(f2), max_disp, stride)
+    assert cs > 1 or c <= 16  # C over several chunks splits a tile over a cluster
+    plain = T_corr.correlation_plain(_t(f1), _t(f2), max_disp, stride)
+    assert got.shape == plain.shape
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    if xla:
+        want = J_corr.correlation_xla(jnp.asarray(f1), jnp.asarray(f2),
+                                      max_disp=max_disp, stride=stride)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
