@@ -2262,6 +2262,85 @@ def reg_ft_edge_cases(chk, n=2, h=96, w=320, k=7):
                         cot=chk.randn((1, 1, 1, 2)).expand(n, h, w, 2))]
 
 
+# the cost volume's backward kernel off the update's shapes: (label, [n, h,
+# w, c] of f1 and f2, D, stride, re-lay f1 and f2 one element past an
+# aligned address); a map smaller than one 8 x 16 tile, ragged tiles, C not
+# a multiple of the 32-channel chunk or of a vector (33, 130: scalar
+# staging and stores), C = 24 (bf16 vectors), C = 1536 (chunks split over
+# blocks, each walking several), a 1x1 map, unaligned pixels, stride 2 at
+# level 2, D = 4 at 512 channels and D = 4 ragged at stride 2
+CORR_BWD_EDGES = [
+    ("[1, 3, 5, 64] smaller than a tile", (1, 3, 5, 64), 3, 1, False),
+    ("ragged [2, 13, 41, 96]", (2, 13, 41, 96), 3, 1, False),
+    ("c=33 [2, 12, 40, 33]", (2, 12, 40, 33), 3, 1, False),
+    ("c=24 [2, 12, 40, 24]", (2, 12, 40, 24), 3, 1, False),
+    ("c=130 [1, 6, 20, 130]", (1, 6, 20, 130), 3, 1, False),
+    ("c=1536 [2, 6, 20, 1536]", (2, 6, 20, 1536), 3, 1, False),
+    ("1x1 [2, 1, 1, 64]", (2, 1, 1, 64), 4, 1, False),
+    ("unaligned [2, 12, 40, 64]", (2, 12, 40, 64), 3, 1, True),
+    ("stride 2 [2, 96, 320, 64]", (2, 96, 320, 64), 3, 2, False),
+    ("D=4 c=512 [2, 6, 20, 512]", (2, 6, 20, 512), 4, 1, False),
+    ("D=4 stride 2 [1, 19, 37, 72]", (1, 19, 37, 72), 4, 2, False),
+]
+
+
+def corr_bwd_edge_checks(chk, edges=CORR_BWD_EDGES):
+    """The cost volume's backward kernel at ``edges``, in float32 and bf16,
+    with both gradients and with each alone, against
+    ``correlation_backward_plain`` in float32 on the same (bf16-rounded)
+    inputs: within 1e-4·max(1, max |ref|) (plus 2e-2 |ref| for bf16, the
+    gradient's rounding); one launch a call, equal bit for bit over two
+    launches and to the launch with both gradients. Returns the largest
+    float32 and bf16 errors."""
+    from dfvo_torch.ops.correlation import correlation_backward_plain
+    from dfvo_torch.ops.pallas_corr import correlation_backward_cuda
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for label, shape, d, stride, unaligned in edges:
+        n, h, w, _ = shape
+        cot = chk.randn((n, -(-h // stride), -(-w // stride), (2 * d + 1) ** 2))
+        f1, f2 = chk.randn(shape), chk.randn(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, g = f1.to(dtype), f2.to(dtype), cot.to(dtype)
+            ref = correlation_backward_plain(g.float(), a.float(), b.float(), d, stride)
+            if unaligned:
+                a, b = misaligned(a), misaligned(b)
+            both = None
+            for needs in ((True, True), (True, False), (False, True)):
+                before = correlation_backward_cuda.launches
+                got = correlation_backward_cuda(g, a, b, d, stride, needs=needs)
+                again = correlation_backward_cuda(g, a, b, d, stride, needs=needs)
+                if correlation_backward_cuda.launches != before + 2:
+                    fail(f"correlation backward {label}: "
+                         f"{correlation_backward_cuda.launches - before} launches for two calls")
+                both = got if both is None else both
+                for i, (x, y, full, r, need) in enumerate(zip(got, again, both, ref, needs)):
+                    if not need:
+                        if x is not None:
+                            fail(f"correlation backward {label}: gradient {i} not asked for "
+                                 "but returned")
+                        continue
+                    if x.dtype != dtype or x.shape != shape:
+                        fail(f"correlation backward {label}: gradient {i} is {x.dtype} "
+                             f"{tuple(x.shape)}")
+                    if not (torch.equal(x, y) and torch.equal(x, full)):
+                        fail(f"correlation backward {label} {str(dtype)[6:]} needs {needs}: "
+                             f"gradient {i} differs between launches")
+                    err = (x.float() - r).abs()
+                    tol = ((2e-2 * r.abs() if dtype == torch.bfloat16 else 0)
+                           + 1e-4 * max(1.0, r.abs().max().item()))
+                    bad = (err > tol).sum().item()
+                    if bad or not torch.isfinite(x).all():
+                        fail(f"correlation backward {label} {str(dtype)[6:]} needs {needs}: "
+                             f"gradient {i}: {bad} entries off, max err {err.max().item():.3e}")
+                    worst[dtype] = max(worst[dtype], err.max().item())
+        print(f"  correlation backward {label} D={d} stride {stride}: float32 and bf16 ok "
+              "(both gradients and each alone, equal bit for bit over launches)", flush=True)
+    print(f"  correlation backward edge cases: max abs err float32 {worst[torch.float32]:.2e}, "
+          f"bf16 {worst[torch.bfloat16]:.2e}", flush=True)
+    return worst[torch.float32], worst[torch.bfloat16]
+
+
 def ft_bwd_bf16(case, cot):
     """The case's backward kernel in bf16 against its plain version in
     float32 on the same bf16-rounded inputs and cotangent: |got - ref| <=
@@ -2279,7 +2358,7 @@ def ft_bwd_bf16(case, cot):
     ref = case["bwd_plain"](g.float(), *[t.float() for t in ins], *case["rest"], needs=needs)
     if case["kernel"] == "head_conv":
         same_bits(case, case["bwd_kfn"](g, *ins, *case["rest"], needs=needs)[1:], got[1:], "bf16")
-    elif case["kernel"] == "reg_dist_filter":
+    else:
         same_bits(case, case["bwd_kfn"](g, *ins, *case["rest"], needs=needs), got, "bf16")
     worst = 0.0
     for i, (a, r) in enumerate(zip(got, ref)):
@@ -2298,8 +2377,8 @@ def ft_bwd_bf16(case, cot):
 
 def same_bits(case, again, first, what):
     """The outputs of two launches (the head conv's weight and bias
-    gradients, the filter's gradients, the cost volume: their partials are
-    summed in a fixed order, with no atomics): equal bit for bit."""
+    gradients, the filter's gradients, the cost volume and its gradients:
+    their sums run in a fixed order, with no atomics): equal bit for bit."""
     if not all(torch.equal(a, b) for a, b in zip(again, first)):
         fail(f"finetune {case['kernel']} {case['label']}: {what} outputs differ between two "
              "launches")
@@ -2353,10 +2432,10 @@ def ft_kernel_checks(cases):
             needs = (True,) * len(ins)
             first = case["bwd_kfn"](cot, *ins, *rest, needs=needs)[1:]
             same_bits(case, case["bwd_kfn"](cot, *ins, *rest, needs=needs)[1:], first, "f32")
-        elif kernel == "reg_dist_filter":
+        else:
             same_bits(case, case["bwd_kfn"](cot, *ins, *rest), case["bwd_kfn"](cot, *ins, *rest),
                       "f32 backward")
-        else:
+        if kernel == "correlation":
             with torch.no_grad():
                 same_bits(case, [case["kfn"](*ins, *rest)], [case["kfn"](*ins, *rest)],
                           "f32 forward")
@@ -2368,7 +2447,7 @@ def ft_kernel_checks(cases):
               f"input grads err {max(errs[1:]):.2e} (backward kernel); bf16 backward kernel "
               f"ok, max abs err {e16:.2e}; "
               + {"head_conv": "dW, db", "reg_dist_filter": "gradients",
-                 "correlation": "out"}[kernel] + " equal bit for bit over two launches",
+                 "correlation": "out, df1, df2"}[kernel] + " equal bit for bit over two launches",
               flush=True)
     return worst, worst_bf16
 
@@ -2813,11 +2892,15 @@ def finetune_phase(chk, seed, out_dir):
     """Online finetuning on the card: each kernel's Function at every
     finetuning shape against the plain version's autograd (and each
     backward kernel in bf16; the filter's also on ties and on cotangents
-    that are not contiguous), the forward and backward times; the CLI with
+    that are not contiguous; the cost volume's backward kernel also at
+    CORR_BWD_EDGES), the forward and backward times; the CLI with
     ablation_self_flow_online.yml plus depth finetuning in both executions;
     one update on the card against the CPU; the times."""
     cases = ft_cases(chk)
     errs, errs_bf16 = ft_kernel_checks(cases + reg_ft_edge_cases(chk))
+    edge_f32, edge_bf16 = corr_bwd_edge_checks(chk)
+    errs["correlation"][1] = max(errs["correlation"][1], edge_f32)
+    errs_bf16["correlation"] = max(errs_bf16["correlation"], edge_bf16)
     rows, sums = ft_kernel_times(cases)
     # the networks at PyTorch's defaults from here on: cuDNN's TF32
     # convolutions on, float32 matmuls in float32 (the geometry's highp)

@@ -17,6 +17,14 @@ and that ``chip_smoke.py`` holds the backward kernels
   (row groups added in order), and the per-block partials summed in the
   second launch's order (each of 8 warps the partials w, w + 8, ..., then
   the warps in order); against the closed form and ``_hc_bwd``.
+* The cost volume backward kernel's decomposition in plain torch: 8 x 16
+  tiles, df1 and df2 in blocks of their own (df2 from the cotangent with
+  mirrored taps, gathered at the shifted pixels), the cotangent staged
+  tap-major in quads of pixels and read back per strip of 8 pixels, the
+  map staged per chunk of 32 channels with its +-D halo (zero outside the
+  image and past C), the chunks split over blocks or walked by one block,
+  each output summed over the taps in order; against the closed form and
+  ``_corr_bwd``.
 * The Functions reach the closed forms on the CPU, and the backward
   kernels' wrappers refuse CPU tensors.
 """
@@ -280,6 +288,171 @@ def test_head_conv_backward_tiled_matches_plain_and_hc_bwd(k, cout, prepadded, c
         # dw and db sum over up to 2 x 20 x 70 pixels
         np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=1e-5, atol=ATOL32 * 10)
         np.testing.assert_allclose(g.numpy(), np.asarray(wj), rtol=1e-5, atol=ATOL32 * 10)
+
+
+# csrc/correlation_bwd.cu: tile rows and columns, pixels of a strip,
+# channels of a chunk, the SMs of the card and the shared memory of one
+CB_ROWS, CB_COLS, CB_SEG, CB_CHAN, CB_SMS, CB_SMEM_PER_SM = 8, 16, 8, 32, 132, 233472
+
+
+def _cb_split(tile_maps, chunks, max_disp, sms):
+    """The kernel's split of the chunks over blocks (float32): one chunk a
+    block where that fits one wave of blocks with one buffer each, else the
+    fewest splits that give each of ``sms`` SMs a block, every block walking
+    an equal number of chunks."""
+    kk = (2 * max_disp + 1) ** 2
+    smem = 4 * (CB_ROWS * CB_COLS * kk + (CB_ROWS + 2 * max_disp) * (CB_COLS + 2 * max_disp)
+                * CB_CHAN)
+    per_sm = max(1, min(4, CB_SMEM_PER_SM // (smem + 1024)))
+    if tile_maps * chunks <= per_sm * sms:
+        return chunks
+    want = min(chunks, -(-sms // tile_maps))
+    return -(-chunks // -(-chunks // want))
+
+
+def _one_thread(fn):
+    """Run ``fn`` on one torch thread: its ops are on tensors of a few
+    thousand elements, where waking a pool of threads costs more than the
+    work."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_num_threads(threads)
+    return run
+
+
+@_one_thread
+def _correlation_bwd_tiled(grad, f1, f2, max_disp, stride=1, needs=(True, True),
+                           sms=CB_SMS):
+    """The cost volume backward kernel's arithmetic, in float32, on the
+    stride-reduced maps. Block ((tile * nsplit + split) * maps + m) owns an
+    8 x 16 tile, gradient m (0: df1 from g and f2; 1: df2 from f1 and the
+    cotangent with mirrored taps, g[q + d(k), K-1-k]) and the chunks split,
+    split + nsplit, ... of 32 channels. It stages the cotangent as gm[e],
+    e = (q / 4 * K + k) * 4 + q % 4 (zero outside the image), and reads it
+    back per strip s of 8 pixels (tile row s / 2, columns 8 (s % 2) ..) at
+    2s K 4 + (p / 4) K 4 + 4k + p % 4; per chunk it stages the map with its
+    +-D halo (zero outside the image and past C) and sums each output over
+    the taps k = 0, 1, ... in order against the halo pixel (row + dy + D,
+    column + dx + D). Returns (df1, df2) (None where not asked for) and the
+    split."""
+    f1v, f2v = f1[:, ::stride, ::stride], f2[:, ::stride, ::stride]
+    n, h, w, c = f1v.shape
+    d = max_disp
+    k_dim = 2 * d + 1
+    kk = k_dim * k_dim
+    tiles_x, tiles_y = -(-w // CB_COLS), -(-h // CB_ROWS)
+    maps = [m for m, need in enumerate(needs) if need]
+    chunks = -(-c // CB_CHAN)
+    nsplit = _cb_split(tiles_x * tiles_y * n * len(maps), chunks, d, sms)
+    inv_c = torch.tensor(1.0 / c, dtype=torch.float32)
+    g = grad.float()
+    outs = [torch.zeros(n, h, w, c) if need else None for need in needs]
+    # the staging order of the cotangent and each copy's source
+    e = torch.arange(CB_ROWS * CB_COLS * kk)
+    k = (e >> 2) % kk
+    q = e // (4 * kk) * 4 + (e & 3)
+    # the reads: strip s, pixel p of the strip, tap k
+    s_, p_, k_ = (torch.arange(CB_ROWS * CB_COLS // CB_SEG)[:, None, None],
+                  torch.arange(CB_SEG)[None, :, None], torch.arange(kk)[None, None, :])
+    reads = 2 * s_ * kk * 4 + (p_ >> 2) * kk * 4 + k_ * 4 + (p_ & 3)
+    for blk in range(tiles_x * tiles_y * n * len(maps) * nsplit):
+        m = maps[blk % len(maps)]
+        rest = blk // len(maps)
+        split, tile = rest % nsplit, rest // nsplit
+        x0, y0 = tile % tiles_x * CB_COLS, tile // tiles_x % tiles_y * CB_ROWS
+        b = tile // (tiles_x * tiles_y)
+        yy, xx, t = y0 + q // CB_COLS, x0 + q % CB_COLS, k
+        if m == 1:
+            yy, xx, t = yy + k // k_dim - d, xx + k % k_dim - d, kk - 1 - k
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        gm = torch.where(ok, g[b, yy.clamp(0, h - 1), xx.clamp(0, w - 1), t], 0.0)
+        # [strip, pixel, tap] -> [tile row, column, tap]
+        gt = gm[reads].reshape(CB_ROWS, CB_COLS, kk)
+        src = f2v if m == 0 else f1v
+        # the block's chunks side by side (each is summed on its own)
+        mine = range(split, chunks, nsplit)
+        halo = torch.zeros(CB_ROWS + 2 * d, CB_COLS + 2 * d, len(mine), CB_CHAN)
+        ys, xs = max(0, y0 - d), max(0, x0 - d)
+        ye, xe = min(h, y0 + CB_ROWS + d), min(w, x0 + CB_COLS + d)
+        for i, j in enumerate(mine):
+            c0, c1 = j * CB_CHAN, min(c, (j + 1) * CB_CHAN)
+            halo[ys - y0 + d : ye - y0 + d, xs - x0 + d : xe - x0 + d, i, : c1 - c0] = (
+                src[b, ys:ye, xs:xe, c0:c1].float())
+        acc = torch.zeros(CB_ROWS, CB_COLS, len(mine), CB_CHAN)
+        for tap in range(kk):
+            dyi, dxi = divmod(tap, k_dim)
+            acc = acc + gt[:, :, tap, None, None] * halo[dyi : dyi + CB_ROWS,
+                                                         dxi : dxi + CB_COLS]
+        th, tw = min(CB_ROWS, h - y0), min(CB_COLS, w - x0)
+        for i, j in enumerate(mine):
+            c0, c1 = j * CB_CHAN, min(c, (j + 1) * CB_CHAN)
+            outs[m][b, y0 : y0 + th, x0 : x0 + tw, c0:c1] = (
+                acc[:th, :tw, i, : c1 - c0] * inv_c)
+    full = []
+    for out, src in zip(outs, (f1, f2)):
+        if out is not None and stride != 1:
+            grad_full = torch.zeros(src.shape)
+            grad_full[:, ::stride, ::stride] = out
+            out = grad_full
+        full.append(out)
+    return tuple(full), nsplit
+
+
+# (max_disp, stride, n, h, w, c, needs, sms): ragged tiles with C off the
+# chunk (40, 100, 70, 33) and split over blocks; a map smaller than a tile;
+# a 1x1 map; C = 130 over five split chunks; a card of 4 or 2 SMs, so that
+# one block walks 4 or 3 chunks (two splits of 2 and 2 at 3 SMs); each
+# gradient alone
+CB_TILED_CASES = [(3, 1, 2, 13, 41, 40, (True, True), CB_SMS),
+                  (4, 2, 2, 21, 27, 32, (True, True), CB_SMS),
+                  (3, 1, 1, 3, 5, 64, (True, True), CB_SMS),
+                  (4, 1, 2, 1, 1, 24, (True, True), CB_SMS),
+                  (3, 1, 1, 6, 20, 130, (True, True), CB_SMS),
+                  (3, 1, 2, 13, 41, 100, (True, True), 4),
+                  (4, 2, 1, 19, 37, 70, (True, True), 2),
+                  (3, 1, 1, 6, 20, 100, (True, True), 3),
+                  (3, 2, 2, 17, 35, 48, (True, False), CB_SMS),
+                  (4, 1, 1, 9, 20, 33, (False, True), CB_SMS)]
+
+
+@pytest.mark.parametrize("max_disp,stride,n,h,w,c,needs,sms", CB_TILED_CASES)
+def test_correlation_backward_tiled_matches_plain(max_disp, stride, n, h, w, c, needs, sms):
+    rng = np.random.RandomState(70 + 10 * max_disp + stride + c)
+    f1 = _t(rng.randn(n, h, w, c).astype(np.float32))
+    f2 = _t(rng.randn(n, h, w, c).astype(np.float32))
+    ho, wo = -(-h // stride), -(-w // stride)
+    cot = _t(rng.randn(n, ho, wo, (2 * max_disp + 1) ** 2).astype(np.float32))
+    got, nsplit = _correlation_bwd_tiled(cot, f1, f2, max_disp, stride, needs, sms)
+    chunks = -(-c // CB_CHAN)
+    if sms < CB_SMS:
+        assert 1 <= nsplit < chunks  # a block walks several chunks
+    elif chunks > 1:
+        assert nsplit == chunks  # one chunk a block
+    want = T_corr.correlation_backward_plain(cot, f1, f2, max_disp, stride, needs=needs)
+    # float32 sums of 49 or 81 products in another order than the closed
+    # form's (df2's taps mirrored)
+    _assert_grads(got, want, needs, ATOL32)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_correlation_backward_tiled_matches_corr_bwd_d4(stride):
+    """The shapes of ``test_correlation_backward_plain_matches_corr_bwd_d4``,
+    so that XLA compiles nothing new."""
+    rng = np.random.RandomState(40 + stride)
+    f1, f2 = (rng.randn(2, 7, 9, 8).astype(np.float32) for _ in range(2))
+    ho, wo = -(-7 // stride), -(-9 // stride)
+    cot = rng.randn(2, ho, wo, 81).astype(np.float32)
+    want = jax.jit(functools.partial(_corr_bwd, 4, stride))(
+        (jnp.asarray(f1), jnp.asarray(f2)), jnp.asarray(cot))
+    got, _ = _correlation_bwd_tiled(_t(cot), _t(f1), _t(f2), 4, stride)
+    for g, wj in zip(got, want):
+        assert g.shape == wj.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(wj), atol=ATOL32)
 
 
 @pytest.mark.parametrize("name", ["correlation", "head_conv"])
